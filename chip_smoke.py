@@ -23,15 +23,30 @@ Phases, each printed on lines of its own:
   5. each kernel timed at the shape the main path gives it, beside its
      plain version, the one-call PyTorch yardstick, its bound and its
      first version's time, and again at 4 x the rows (the streaming rate
-     and the fixed cost of a call); then the JSON line of kernels, the
-     card line and, last, the result line.
+     and the fixed cost of a call);
+  6. TPC-H Q6, Q3 and Q18 (threshold 300) at SF 1, capacity 2^20, through
+     workload.tpch_queries -> exec.collect on CUDA, data generated off the
+     clock: one cold run and 5 warm runs of each built flow, every run
+     equal to the query's columnar oracle (q6_oracle,
+     q3_oracle_columnar, q18_oracle_columnar), row for row. Prints the
+     cold time, the median and every warm time, the FlowRestart count of
+     each run (Q18's first aggregate, 1.5 M groups, overflows a 2^20
+     accumulator: one restart on the cold run, none warm — anything else
+     fails), the host stage timers (scan.pack, scan.transfer, join.build,
+     agg.fold), the synchronizing CUDA calls of one warm run, and the
+     device time of one call of each layer (Q3's join build and probe,
+     Q18's aggregate partial and fold step, its top-K); then one JSON
+     line per query, the JSON line of kernels, the card line and, last,
+     the result line.
 
 Phase 2 fails if ptxas reports spills in dense_sums' Q1 instantiation,
 or if its SASS (cuobjdump -sass) holds a shared-memory atomic (ATOMS).
 
 Any mismatch or exception exits non-zero. With --profile DIR, one more
-Q1 run is traced with torch.profiler and its kernel table is written to
-DIR/q1_profile.txt.
+run of Q1, Q6, Q3 and Q18 each is traced with torch.profiler: the kernel
+tables go to DIR/<query>_profile.txt, the traces to
+DIR/<query>_trace.json, and phase 6 prints each query's device busy time
+and its ten longest device ops.
 """
 
 import argparse
@@ -294,10 +309,241 @@ def check_q1(res, oracle, rf_names, ls_names) -> None:
                 raise SystemExit(f"Q1 {k} {col}: {got} vs {ref}")
 
 
+# ------------------------------------------------------------ phase 6
+
+Q_NAMES = ("q6", "q3", "q18")
+Q18_THRESHOLD = 300  # the spec's
+# host stage timers printed per query (exec/stats.py)
+STAGES = ("scan.pack", "scan.transfer", "join.build", "agg.fold")
+Q_COLUMNS = {
+    "q6": ("revenue",),
+    "q3": ("l_orderkey", "revenue", "o_orderdate", "o_shippriority"),
+    "q18": ("c_name", "c_custkey", "o_orderkey", "o_orderdate",
+            "o_totalprice", "sum_qty"),
+}
+
+
+def feed_pregenerated(flow, gen, capacity: int) -> int:
+    """Point every ScanOp of `flow` at chunks of tables generated before
+    the clock starts. Returns the number of scans fed."""
+    from cockroach_tpu_torch.exec.operators import ScanOp, walk_operators
+
+    n_scans = 0
+    for op in walk_operators(flow):
+        if isinstance(op, ScanOp):
+            table = gen.table(op.table)
+            cols = op.schema.names()
+            n = gen.num_rows(op.table)
+            chunks = [{c: table[c][a:a + capacity] for c in cols}
+                      for a in range(0, n, capacity)]
+            op._chunks = lambda chunks=chunks: iter(chunks)
+            n_scans += 1
+    return n_scans
+
+
+def query_rows(name: str, res) -> list:
+    """A result's rows as tuples of Python ints, after checking that no
+    column holds a NULL."""
+    for col in Q_COLUMNS[name]:
+        if not res[col + "__valid"].all():
+            raise SystemExit(f"{name}: {col} has NULLs")
+    return list(zip(*(res[c].tolist() for c in Q_COLUMNS[name])))
+
+
+def query_oracle(name: str, gen) -> list:
+    from cockroach_tpu_torch.workload import tpch_queries as tq
+
+    if name == "q6":
+        return [(tq.q6_oracle(gen),)]
+    if name == "q3":
+        return tq.q3_oracle_columnar(gen)
+    return tq.q18_oracle_columnar(gen, Q18_THRESHOLD)
+
+
+def timed_collect(torch, stats, collect, flow, count_syncs: bool = False):
+    """One run of the flow: (result, seconds, restarts, host stage
+    seconds, host syncs or None). With count_syncs, every synchronizing
+    CUDA call of the run is counted (torch.cuda.set_sync_debug_mode)."""
+    import warnings
+
+    with stats.query_stats() as col, warnings.catch_warnings(
+            record=True) as caught:
+        warnings.simplefilter("always")
+        if count_syncs:
+            torch.cuda.set_sync_debug_mode("warn")
+        try:
+            t0 = time.perf_counter()
+            res = collect(flow)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = (sum("synchroniz" in str(w.message) for w in caught)
+             if count_syncs else None)
+    restart = col.stages.get("flow.restart")
+    stages = {s: col.stages[s].seconds for s in STAGES if s in col.stages}
+    return res, dt, (restart.events if restart else 0), stages, syncs
+
+
+def layer_times(torch, flows, dev) -> dict:
+    """Device ms (CUDA events, median of 10) of one call of each layer at
+    the shapes SF 1 gives it: Q3's join build (prepare_build of the
+    orders side) and probe (one lineitem batch), one partial and one fold
+    step of Q18's first aggregate (1.5 M groups), and Q18's top-K."""
+    from itertools import islice
+
+    from cockroach_tpu_torch.exec.operators import (
+        HashAggOp, _fold_step, _grow_to, _pow2_at_least, walk_operators,
+    )
+    from cockroach_tpu_torch.ops.join import (
+        hash_join_prepared, prepare_build,
+    )
+    from cockroach_tpu_torch.ops.sort import top_k_batch
+
+    out = {}
+    join = flows["q3"].child.child
+    build = join._materialize_build(dev)
+    bt = prepare_build(build, join.build_on, mode="unique-mat")
+    probe = next(iter(join.probe.batches(dev)))
+    out["q3.join.build"] = event_ms(
+        torch, lambda: prepare_build(build, join.build_on, mode="unique-mat"),
+        reps=10)
+    out["q3.join.probe"] = event_ms(
+        torch, lambda: hash_join_prepared(probe, bt, join.probe_on,
+                                          join.build_on, how="inner"),
+        reps=10)
+    agg = [op for op in walk_operators(flows["q18"])
+           if isinstance(op, HashAggOp) and op.group_by == ["l_orderkey"]][0]
+    b1, b2 = islice(agg.child.batches(dev), 2)
+    p1, _ = agg._partial(b1)
+    p2, _ = agg._partial(b2)
+    acc_cap = _pow2_at_least(p1.capacity * agg.expansion)
+    acc = _grow_to(p1, acc_cap)
+    out["q18.agg.partial"] = event_ms(torch, lambda: agg._partial(b2),
+                                      reps=10)
+    out["q18.agg.fold_step"] = event_ms(
+        torch, lambda: _fold_step(acc, p2, acc_cap, agg.group_by,
+                                  agg._merge_aggs, seed=agg.seed), reps=10)
+    topk = flows["q18"]
+    winners = list(topk.child.batches(dev))
+    out["q18.top_k"] = event_ms(
+        torch, lambda: [top_k_batch(w, topk.keys, topk.k, topk.child.schema)
+                        for w in winners], reps=10)
+    return out
+
+
+def trace_query(torch, collect, flow, path_stem: str):
+    """One traced run: (device busy ms, wall ms, the ten longest device
+    ops as (name, total ms, count))."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        collect(flow)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    trace = path_stem + "_trace.json"
+    prof.export_chrome_trace(trace)
+    with open(path_stem + "_profile.txt", "w") as f:
+        f.write(prof.key_averages().table(sort_by="device_time_total",
+                                          row_limit=60))
+    busy_ms, _n = device_busy_ms(trace)
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    per_op = {}
+    for e in events:
+        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") \
+                and "dur" in e:
+            tot, cnt = per_op.get(e["name"], (0.0, 0))
+            per_op[e["name"]] = (tot + e["dur"] / 1e3, cnt + 1)
+    top = sorted(per_op.items(), key=lambda kv: -kv[1][0])[:10]
+    return busy_ms, wall_ms, [(n, t, c) for n, (t, c) in top]
+
+
+def run_phase6(torch, gen, dev, profile_dir):
+    """Q6, Q3 and Q18 at SF 1 through the port on CUDA. -> {name: JSON
+    record}."""
+    from cockroach_tpu_torch.exec import stats
+    from cockroach_tpu_torch.exec.operators import collect
+    from cockroach_tpu_torch.workload import tpch_queries as tq
+
+    t0 = time.perf_counter()
+    for t in ("customer", "orders", "lineitem"):
+        gen.table(t)
+    builders = {"q6": lambda: tq.q6(gen, CAPACITY),
+                "q3": lambda: tq.q3(gen, CAPACITY),
+                "q18": lambda: tq.q18(gen, Q18_THRESHOLD, CAPACITY)}
+    flows = {n: builders[n]() for n in Q_NAMES}
+    oracles = {n: query_oracle(n, gen) for n in Q_NAMES}
+    fed = {n: feed_pregenerated(flows[n], gen, CAPACITY) for n in Q_NAMES}
+    print(f"[6] Q6, Q3, Q18 at SF {SF}, capacity {CAPACITY} (datagen + "
+          f"columnar oracles {time.perf_counter() - t0:.2f} s; scans fed "
+          f"{fed})", flush=True)
+    records = {}
+    for name in Q_NAMES:
+        flow = flows[name]
+        runs, restarts, stage_runs = [], [], []
+        for i in range(1 + WARM_RUNS):
+            res, dt, n_restarts, stages, _ = timed_collect(
+                torch, stats, collect, flow)
+            rows = query_rows(name, res)
+            if rows != oracles[name]:
+                raise SystemExit(f"{name} run {i}: {rows[:3]}... differs "
+                                 f"from its columnar oracle "
+                                 f"{oracles[name][:3]}...")
+            runs.append(dt)
+            restarts.append(n_restarts)
+            stage_runs.append(stages)
+        _res, _dt, _r, _s, syncs = timed_collect(torch, stats, collect, flow,
+                                                 count_syncs=True)
+        cold, warm = runs[0], runs[1:]
+        warm_s = statistics.median(warm)
+        want_cold = 1 if name == "q18" else 0
+        if restarts[0] != want_cold or any(restarts[1:]):
+            raise SystemExit(f"{name}: restarts {restarts}, expected "
+                             f"{want_cold} on the cold run and none warm")
+        print(f"  {name}: {len(oracles[name])} rows match the columnar "
+              f"oracle in all {len(runs)} runs; cold {cold:.4f} s, warm "
+              f"median {warm_s:.4f} s of {[round(w, 4) for w in warm]}; "
+              f"restarts per run {restarts}; synchronizing CUDA calls in "
+              f"one warm run {syncs}", flush=True)
+        for label, st in (("cold", stage_runs[0]), ("last warm",
+                                                    stage_runs[-1])):
+            print(f"  {name} host stages, {label} run: "
+                  + ", ".join(f"{s} {st[s] * 1e3:.2f} ms" for s in STAGES
+                              if s in st), flush=True)
+        records[name] = {"sf": SF, "capacity": CAPACITY, "cold_s": cold,
+                         "warm_s": warm_s, "warm_runs_s": warm,
+                         "restarts": restarts,
+                         "host_stages_warm_s": stage_runs[-1],
+                         "host_syncs_warm": syncs}
+    layers = layer_times(torch, flows, dev)
+    print("  layers, device ms per call: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in layers.items()), flush=True)
+    for name in Q_NAMES:
+        records[name]["layers_ms"] = {k: v for k, v in layers.items()
+                                      if k.startswith(name + ".")}
+    if profile_dir:
+        for name in Q_NAMES:
+            busy, wall, top = trace_query(
+                torch, collect, flows[name],
+                os.path.join(profile_dir, name))
+            records[name]["device_busy_ms"] = busy
+            records[name]["traced_wall_ms"] = wall
+            print(f"  traced {name} run: device busy {busy:.3f} ms of "
+                  f"{wall:.3f} ms wall; ten longest device ops "
+                  f"(total ms, count):", flush=True)
+            for op, ms, cnt in top:
+                print(f"    {ms:9.3f} {cnt:5d}  {op[:110]}")
+    return records
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", metavar="DIR",
-                    help="trace one more Q1 run and write its kernel table")
+                    help="trace one more run of Q1, Q6, Q3 and Q18 and "
+                    "write their kernel tables")
     args = ap.parse_args()
 
     import torch
@@ -488,6 +734,9 @@ def main() -> int:
               f"{busy_ms:.3f} ms of {wall_ms:.3f} ms wall; kernel table in "
               f"{path}")
 
+    # ---- 6. Q6, Q3 and Q18 at SF 1
+    query_records = run_phase6(torch, gen, dev, args.profile)
+
     kernels = [{
         "name": "dense_sums",
         "route": "cuda",
@@ -504,6 +753,8 @@ def main() -> int:
     print(json.dumps({"q1": {"sf": SF, "capacity": CAPACITY,
                              "cold_s": cold, "warm_s": warm_s,
                              "warm_runs_s": warm}}))
+    for name in Q_NAMES:
+        print(json.dumps({name: query_records[name]}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,9 @@
 operators over device batches, driven by the host."""
 
 from cockroach_tpu_torch.exec.operators import (
-    HashAggOp, MapOp, Operator, ScanOp, SortOp, collect,
+    FlowRestart, HashAggOp, JoinOp, LimitOp, MapOp, Operator, OrderedAggOp,
+    ScanOp, SortOp, TopKOp, collect,
 )
 
-__all__ = ["Operator", "ScanOp", "MapOp", "HashAggOp", "SortOp", "collect"]
+__all__ = ["Operator", "ScanOp", "MapOp", "HashAggOp", "OrderedAggOp",
+           "JoinOp", "SortOp", "TopKOp", "LimitOp", "FlowRestart", "collect"]

@@ -1,15 +1,21 @@
 """Streaming operator tree over device batches.
 
-Counterpart of cockroach_tpu/exec/operators.py, for the operators on
-TPC-H Q1's path: ScanOp -> MapOp (filter, projection) -> HashAggOp (the
-dense route) -> SortOp (in memory). An operator yields Batches on the
-device that `collect` names; PyTorch runs eagerly, so there is no jit
-and no fused whole-flow program, and nothing reads a device value back
-to the host until `collect` consumes the final batch.
+Counterpart of cockroach_tpu/exec/operators.py, for the operators on the
+paths of TPC-H Q1, Q3, Q6 and Q18: ScanOp -> MapOp (filter, projection)
+-> HashAggOp (the dense route, and the sort route with its scalar case),
+OrderedAggOp, JoinOp, SortOp (in memory), TopKOp and LimitOp. An
+operator yields Batches on the device that `collect` names; PyTorch runs
+eagerly, so there is no jit and no fused whole-flow program.
 
-Not ported yet (ROADMAP.md queue 1): the sort-based and range-dense
-GROUP BY, joins, top-K/limit, the external sort, the fused runner, the
-resident scan and stacked fold, and the degradation ladder.
+No operator reads a device value back to the host inside its batch loop.
+A deferred capacity or correctness check (aggregate overflow, hash
+collision, duplicate build key) is a 0-d device flag OR-ed across batches
+and read once at the end of the stream; a raised flag ends the stream
+with FlowRestart, and `run_flow` widens the operator and reruns the flow.
+
+Not ported yet (ROADMAP.md queue 1): the range-dense GROUP BY, the grace
+(out-of-core) paths of HashAggOp and JoinOp, the external sort, the fused
+runner, the resident scan and stacked fold.
 """
 
 from __future__ import annotations
@@ -23,17 +29,55 @@ from cockroach_tpu_torch import resolve_device
 from cockroach_tpu_torch.coldata.arrow import make_unpack, pack_into, pack_layout
 from cockroach_tpu_torch.coldata.batch import (
     BOOL, Batch, ColType, Column, Field, FLOAT, INT, Kind, Schema,
-    concat_batches,
+    concat_batches, mask_padding,
 )
 from cockroach_tpu_torch.exec import stats
 from cockroach_tpu_torch.ops.agg import (
-    AggSpec, dense_aggregate, dense_key_sizes, dense_merge,
+    AggSpec, dense_aggregate, dense_key_sizes, dense_merge, hash_aggregate,
+    ordered_aggregate,
 )
 from cockroach_tpu_torch.ops.expr import (
     Col, decimal_unscale, eval_expr, filter_mask,
 )
-from cockroach_tpu_torch.ops.sort import SortKey, sort_batch
+from cockroach_tpu_torch.ops.sort import SortKey, sort_batch, top_k_batch
 from cockroach_tpu_torch.util.settings import WORKMEM, Settings
+
+
+class FlowRestart(Exception):
+    """Raised at the end of a stream when a deferred check failed
+    (aggregate overflow, hash collision, duplicate build key). The flow
+    driver discards the results, widens the failed operator and reruns."""
+
+    def __init__(self, op: "Operator"):
+        self.op = op
+        super().__init__("flow restart: operator capacity overflow")
+
+
+def _pow2_at_least(n: int) -> int:
+    size = 1
+    while size < n:
+        size *= 2
+    return size
+
+
+def _row_bytes(schema: Schema) -> int:
+    """Device bytes per row, validity excluded, for workmem decisions
+    (exec/spill.py estimate_row_bytes in the JAX package)."""
+    return sum(f.type.np_dtype.itemsize for f in schema)
+
+
+def _grow_to(b: Batch, cap: int) -> Batch:
+    """A compact batch widened to capacity `cap` (>= its own): the extra
+    lanes are dead and zero, and every column carries an explicit
+    validity."""
+    pad = cap - b.capacity
+    sel = torch.arange(cap, device=b.device) < b.length
+    cols = {}
+    for n, c in b.columns.items():
+        zeros = c.values.new_zeros((pad,) + c.values.shape[1:])
+        cols[n] = Column(torch.cat([c.values, zeros]),
+                         torch.cat([c.valid_mask(), sel.new_zeros(pad)]))
+    return Batch(mask_padding(cols, sel), sel, b.length)
 
 
 class Operator:
@@ -131,21 +175,59 @@ def _project_schema(schema: Schema, payload) -> Schema:
 
 # ----------------------------------------------------------------- hash agg
 
+_MERGE_FUNC = {"sum": "sum", "count": "sum", "count_star": "sum",
+               "sum_hi32": "sum", "sum_lo32": "sum",
+               "min": "min", "max": "max", "bool_and": "bool_and",
+               "bool_or": "bool_or", "any_not_null": "any_not_null"}
+
+
+def _fold_step(acc: Batch, part: Batch, acc_cap: int, group_by, merge_aggs,
+               seed: int = 0):
+    """(acc, part) -> (acc', overflow): merge-aggregate the concatenated
+    pair and keep the first acc_cap lanes. Live groups are a prefix, so
+    nothing is lost unless the groups outnumber acc_cap — reported by the
+    0-d overflow flag, which also carries the hash-collision bit (both
+    are answered by the same widen-and-rerun)."""
+    merged, coll = hash_aggregate(concat_batches([acc, part]), group_by,
+                                  merge_aggs, seed=seed, method="hash",
+                                  with_flag=True)
+    overflow = (merged.length > acc_cap) | coll
+    sel = torch.arange(acc_cap, device=merged.device) < merged.length
+    length = torch.clamp(merged.length, max=acc_cap)
+    cols = {n: Column(c.values[:acc_cap], c.valid_mask()[:acc_cap])
+            for n, c in merged.columns.items()}
+    return Batch(mask_padding(cols, sel), sel, length), overflow
+
+
 class HashAggOp(Operator):
     """Streaming GROUP BY: per-batch partial aggregation folded into one
     accumulator on the device.
 
-    Only the dense route is ported: every GROUP BY column must have a
-    small static domain (ops/agg.py dense_key_sizes), so each partial has
-    the same D lanes and folds lane-wise with dense_merge, with no
-    overflow and no restart. avg decomposes into sum + count so partials
-    merge; a wide sum into its two int64 halves."""
+    Dense route: every GROUP BY column has a small static domain (ops/agg.py
+    dense_key_sizes), so each partial has the same D lanes and folds
+    lane-wise with dense_merge (K1 on CUDA), with no overflow and no
+    restart.
+
+    Sort route (every other GROUP BY, and the scalar aggregate): the
+    partial is hash_aggregate(method="hash") of the batch; the fold
+    re-aggregates (accumulator ++ partial) with the merge functions and
+    keeps `acc_cap` = pow2(batch capacity x expansion) lanes. Group
+    overflow and hash collisions OR into one device flag, read once after
+    the final batch; a raised flag ends the stream with FlowRestart, and
+    widen() doubles `expansion` and re-seeds the hash.
+
+    avg decomposes into sum + count so partials merge; a wide sum into its
+    two int64 halves. An accumulator past `workmem` needs the grace path,
+    which is not ported yet and raises."""
 
     def __init__(self, child: Operator, group_by: Sequence[str],
                  aggs: Sequence[AggSpec]):
         self.child = child
         self.group_by = list(group_by)
         self.user_aggs = list(aggs)
+        self.expansion = 1  # acc capacity multiplier (restart doubles)
+        self.seed = 0       # hash-grouping seed (restart re-seeds)
+        self.workmem = Settings().get(WORKMEM)
         self.internal: List[AggSpec] = []
         self._avg_parts: Dict[str, Tuple[str, str]] = {}
         for a in aggs:
@@ -161,13 +243,21 @@ class HashAggOp(Operator):
             else:
                 self.internal.append(a)
         self.schema = self._infer_schema(child.schema)
+        self._internal_schema = Schema(
+            [child.schema.field(n) for n in self.group_by]
+            + [Field(a.out, self._agg_out_type(a, child.schema))
+               for a in self.internal],
+            child.schema.dicts)
+        self._merge_aggs = tuple(AggSpec(_MERGE_FUNC[a.func], a.out, a.out)
+                                 for a in self.internal)
         self.dense_sizes = (dense_key_sizes(child.schema, self.group_by)
                             if self.group_by else None)
-        if self.dense_sizes is None:
-            raise NotImplementedError(
-                "HashAggOp: only the dense route (GROUP BY over small "
-                "dictionary/bool domains) is ported; sort-based and scalar "
-                "aggregation wait (ROADMAP.md queue 1)")
+
+    def widen(self):
+        """FlowRestart remedy: double the accumulator expansion (group
+        overflow) and re-seed the key hash (collision)."""
+        self.expansion *= 2
+        self.seed += 1
 
     def _agg_out_type(self, a: AggSpec, schema: Schema) -> ColType:
         if a.func in ("count", "count_star"):
@@ -210,7 +300,12 @@ class HashAggOp(Operator):
                 cols[a.out] = batch.col(a.out)
         return Batch(cols, batch.sel, batch.length)
 
-    def batches(self, device: torch.device) -> Iterator[Batch]:
+    def _partial(self, batch: Batch):
+        """(partial aggregate of one batch, its 0-d collision flag)."""
+        return hash_aggregate(batch, self.group_by, self.internal,
+                              seed=self.seed, method="hash", with_flag=True)
+
+    def _dense_batches(self, device: torch.device) -> Iterator[Batch]:
         gb, internal, sizes = self.group_by, self.internal, self.dense_sizes
         acc = None
         for b in self.child.batches(device):
@@ -221,6 +316,200 @@ class HashAggOp(Operator):
         if acc is not None:
             yield self._final_project(acc.compact())
 
+    def _empty_scalar(self, device: torch.device) -> Batch:
+        """The scalar aggregate over no rows: one row (count 0, NULL
+        sums)."""
+        cols = {f.name: Column(torch.zeros(1, dtype=f.type.dtype,
+                                           device=device))
+                for f in self.child.schema}
+        empty = Batch(cols, torch.zeros(1, dtype=torch.bool, device=device),
+                      torch.zeros((), dtype=torch.int32, device=device))
+        return hash_aggregate(empty, self.group_by, self.internal)
+
+    def batches(self, device: torch.device) -> Iterator[Batch]:
+        if self.dense_sizes is not None:
+            yield from self._dense_batches(device)
+            return
+        row_bytes = _row_bytes(self._internal_schema)
+        acc: Optional[Batch] = None
+        overflow = None
+        acc_cap = 0
+        for b in self.child.batches(device):
+            with stats.timed("agg.fold"):
+                part, coll = self._partial(b)
+                if acc is None:
+                    acc_cap = _pow2_at_least(part.capacity * self.expansion)
+                    if self.group_by and acc_cap * row_bytes > self.workmem:
+                        raise NotImplementedError(
+                            "HashAggOp: the accumulator exceeds workmem and "
+                            "the grace (out-of-core) aggregation is not "
+                            "ported yet (ROADMAP.md queue 1)")
+                    overflow = (part.length > acc_cap) | coll
+                    acc = _grow_to(part, acc_cap)
+                else:
+                    acc, ovf = _fold_step(acc, part, acc_cap, self.group_by,
+                                          self._merge_aggs, seed=self.seed)
+                    overflow = overflow | ovf | coll
+        if acc is None:
+            if not self.group_by:
+                yield self._final_project(self._empty_scalar(device))
+            return  # GROUP BY over no rows: no groups
+        yield self._final_project(acc)
+        # the deferred check: ONE readback, after the consumer has taken
+        # the final batch
+        if self.group_by and bool(overflow):
+            raise FlowRestart(self)
+
+
+class OrderedAggOp(HashAggOp):
+    """Streaming GROUP BY over input whose equal keys arrive in contiguous
+    runs (SortOp output): the per-batch partial skips the sort
+    (ops/agg.py method="ordered"). Runs that straddle batches re-merge in
+    the shared fold. The planner picks this when the child's ordering
+    covers the group keys. Dense keys still take the dense route, as in
+    the JAX package."""
+
+    def _partial(self, batch: Batch):
+        return (ordered_aggregate(batch, self.group_by, self.internal),
+                torch.zeros((), dtype=torch.bool, device=batch.device))
+
+
+# -------------------------------------------------------------------- join
+
+class JoinOp(Operator):
+    """Streaming equi-join: materialize the build side (right child) on the
+    device, stream the probe side.
+
+    The build is held in memory: each build batch is compacted, and the
+    parts are repacked once into one batch of capacity pow2(sum of the
+    batch capacities). It starts in mode "unique-mat", the sort join for
+    unique build keys (ops/sortjoin.py), where the JAX package's JoinOp
+    starts at "unique" and runs it as "unique-mat" too: the port has no
+    payload-carry path, so its ladder skips that rung. widen() walks
+    unique-mat -> expand -> doubled output expansion when the deferred
+    flag (duplicate build key, out-of-range key, expansion overflow) is
+    raised at the end of the probe stream. Right/full-outer joins emit
+    the unmatched build rows after the stream.
+
+    A build past `workmem` needs the grace path, which is not ported yet
+    and raises."""
+
+    def __init__(self, probe: Operator, build: Operator,
+                 probe_on: Sequence[str], build_on: Sequence[str],
+                 how: str = "inner"):
+        self.probe, self.build = probe, build
+        self.probe_on, self.build_on = list(probe_on), list(build_on)
+        self.how = how
+        self.expansion = 1              # output capacity multiplier
+        self.build_mode = "unique-mat"  # widen() walks the ladder from here
+        self.workmem = Settings().get(WORKMEM)
+        if how in ("semi", "anti"):
+            self.schema = probe.schema
+        else:
+            overlap = set(probe.schema.names()) & set(build.schema.names())
+            if overlap:
+                raise ValueError(f"join column collision: {overlap}")
+            dicts = dict(build.schema.dicts)
+            dicts.update(probe.schema.dicts)
+            self.schema = Schema(
+                list(probe.schema.fields) + list(build.schema.fields), dicts)
+
+    def _materialize_build(self, device: torch.device) -> Optional[Batch]:
+        """The whole build side as one compact batch on the device, or
+        None when it has no batches."""
+        budget_rows = max(1, self.workmem
+                          // max(_row_bytes(self.build.schema), 1))
+        parts: List[Batch] = []
+        cap_sum = 0
+        # join.build times this operator's own work only: the child
+        # stream's production bills its own stages
+        for b in self.build.batches(device):
+            if cap_sum + b.capacity > budget_rows:
+                raise NotImplementedError(
+                    "JoinOp: the build side exceeds workmem and the grace "
+                    "(out-of-core) join is not ported yet (ROADMAP.md "
+                    "queue 1)")
+            with stats.timed("join.build"):
+                parts.append(b.compact())
+            cap_sum += b.capacity
+        if not parts:
+            return None
+        # the capacity comes from the batch capacities (a sync-free bound
+        # on the live rows); the lengths stay on the device
+        cap = _pow2_at_least(max(cap_sum, 1))
+        if len(parts) == 1 and parts[0].capacity == cap:
+            return parts[0]
+        with stats.timed("join.build"):
+            merged = concat_batches(parts).compact()
+            return _grow_to(merged, cap) if cap > merged.capacity else merged
+
+    def widen(self):
+        """FlowRestart remedy — descend the mode ladder: unique-mat (flags
+        on duplicate build keys) -> expand -> doubled output expansion."""
+        from cockroach_tpu_torch.ops.join import effective_build_mode
+
+        eff = effective_build_mode(self.build_mode, self.build.schema.names(),
+                                   self.build_on)
+        if eff == "expand":
+            self.expansion *= 2
+        self.build_mode = "expand"
+
+    def batches(self, device: torch.device) -> Iterator[Batch]:
+        from cockroach_tpu_torch.ops.join import (
+            _null_columns, effective_build_mode, hash_join_prepared,
+            prepare_build,
+        )
+
+        build = self._materialize_build(device)
+        per_batch_how = {"outer": "left", "right": "inner"}.get(self.how,
+                                                                 self.how)
+        if build is None:
+            if self.how in ("inner", "semi", "right"):
+                return
+            for b in self.probe.batches(device):
+                if self.how == "anti":
+                    yield b
+                else:  # left/outer: every probe row unmatched
+                    cols = dict(b.columns)
+                    for f in self.build.schema:
+                        cols[f.name] = Column(
+                            torch.zeros(b.capacity, dtype=f.type.dtype,
+                                        device=device),
+                            torch.zeros(b.capacity, dtype=torch.bool,
+                                        device=device))
+                    yield Batch(cols, b.sel, b.length)
+            return
+
+        mode = effective_build_mode(self.build_mode, self.build.schema.names(),
+                                    self.build_on)
+        with stats.timed("join.build"):
+            bt = prepare_build(build, self.build_on, mode=mode)
+        track_r = self.how in ("right", "outer")
+        matched_r = torch.zeros(build.capacity, dtype=torch.bool,
+                                device=device)
+        overflow = torch.zeros((), dtype=torch.bool, device=device)
+        for b in self.probe.batches(device):
+            res = hash_join_prepared(b, bt, self.probe_on, self.build_on,
+                                     how=per_batch_how,
+                                     out_capacity=b.capacity * self.expansion,
+                                     track_build=track_r)
+            overflow = overflow | res.overflow
+            if track_r:
+                matched_r = matched_r | res.matched_build
+            yield res.batch
+        # the deferred check: ONE readback at the end of the stream
+        if bool(overflow):
+            raise FlowRestart(self)
+        if track_r:
+            unmatched = build.sel & ~matched_r
+            rows = torch.arange(build.capacity, device=device)
+            cols = {f.name: Column(
+                torch.zeros(build.capacity, dtype=f.type.dtype, device=device),
+                torch.zeros(build.capacity, dtype=torch.bool, device=device))
+                for f in self.probe.schema}
+            cols.update(_null_columns(build, rows, unmatched))
+            yield Batch(cols, unmatched, unmatched.sum(dtype=torch.int32))
+
 
 # --------------------------------------------------------------------- sort
 
@@ -229,18 +518,14 @@ class SortOp(Operator):
     Input beyond `workmem` needs the external sort, which is not ported
     yet and raises."""
 
-    def __init__(self, child: Operator, keys: Sequence[SortKey],
-                 workmem: Optional[int] = None):
+    def __init__(self, child: Operator, keys: Sequence[SortKey]):
         self.child = child
         self.keys = list(keys)
         self.schema = child.schema
-        self.workmem = Settings().get(WORKMEM) if workmem is None else workmem
+        self.workmem = Settings().get(WORKMEM)
 
     def batches(self, device: torch.device) -> Iterator[Batch]:
-        # device bytes per row, validity excluded (exec/spill.py
-        # estimate_row_bytes in the JAX package)
-        row_bytes = sum(f.type.np_dtype.itemsize for f in self.schema)
-        budget_rows = max(1, self.workmem // max(row_bytes, 1))
+        budget_rows = max(1, self.workmem // max(_row_bytes(self.schema), 1))
         parts: List[Batch] = []
         rows = 0
         for b in self.child.batches(device):
@@ -256,10 +541,65 @@ class SortOp(Operator):
         yield sort_batch(merged, self.keys, self.child.schema)
 
 
+class TopKOp(Operator):
+    """ORDER BY + LIMIT k: per-batch top-k, then the top-k of the
+    winners."""
+
+    def __init__(self, child: Operator, keys: Sequence[SortKey], k: int):
+        self.child = child
+        self.keys = list(keys)
+        self.k = k
+        self.schema = child.schema
+
+    def batches(self, device: torch.device) -> Iterator[Batch]:
+        schema = self.child.schema
+        winners = [top_k_batch(b, self.keys, self.k, schema)
+                   for b in self.child.batches(device)]
+        if not winners:
+            return
+        if len(winners) == 1:
+            yield winners[0]
+            return
+        yield top_k_batch(concat_batches(winners), self.keys, self.k, schema)
+
+
+class LimitOp(Operator):
+    """LIMIT n OFFSET m over the stream in arrival order."""
+
+    def __init__(self, child: Operator, limit: int, offset: int = 0):
+        self.child = child
+        self.limit = limit
+        self.offset = offset
+        self.schema = child.schema
+
+    def _take(self, batch: Batch, carry: torch.Tensor):
+        # global rank among selected rows across the whole stream
+        rank = torch.cumsum(batch.sel, 0, dtype=torch.int32) - 1 + carry
+        keep = batch.sel & (rank >= self.offset) & (
+            rank < self.offset + self.limit)
+        return batch.with_sel(keep), carry + batch.sel.sum(dtype=torch.int32)
+
+    def batches(self, device: torch.device) -> Iterator[Batch]:
+        # the selected-rows count rides on the device; the stop check
+        # reads the previous batch's count, one batch late, so the value
+        # has been computed by the time the host asks for it
+        bound = self.offset + self.limit
+        carry = torch.zeros((), dtype=torch.int32, device=device)
+        prev_carry = None
+        for b in self.child.batches(device):
+            out, carry = self._take(b, carry)
+            yield out
+            if prev_carry is not None and int(prev_carry) >= bound:
+                return
+            prev_carry = carry
+
+
 # ------------------------------------------------------------------ walking
 
 def child_operators(op: Operator) -> List[Operator]:
     """Direct children of an operator node."""
+    if isinstance(op, JoinOp):
+        return [op.probe, op.build]
     child = getattr(op, "child", None)
     return [child] if child is not None else []
 
@@ -281,13 +621,29 @@ def walk_operators(op: Operator):
 
 # ------------------------------------------------------------------- sinks
 
+MAX_RESTARTS = 8
+
+
 def run_flow(op: Operator, reset: Callable[[], None],
              consume: Callable[[Batch], None], device: torch.device) -> None:
     """Drive the flow to completion on `device`, streaming each output
-    batch to `consume`. One tier: an exception propagates."""
-    reset()
-    for b in op.batches(device):
-        consume(b)
+    batch to `consume`. On FlowRestart the failed operator widens and the
+    whole flow reruns from the scans (`reset` discards the sink's partial
+    output first), at most MAX_RESTARTS times; each restart counts
+    under the stats stage `flow.restart`."""
+    restarts = 0
+    while True:
+        reset()
+        try:
+            for b in op.batches(device):
+                consume(b)
+            return
+        except FlowRestart as fr:
+            if restarts == MAX_RESTARTS:
+                raise
+            restarts += 1
+            stats.add("flow.restart")
+            fr.op.widen()
 
 
 def assemble_wide_sums(result: Dict[str, np.ndarray]) -> None:

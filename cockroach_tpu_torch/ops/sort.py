@@ -10,7 +10,7 @@ lexicographic sort over per-column sortable integer keys:
 - deselected lanes always sort last, so the output is compact.
 
 `jnp.lexsort` becomes a chain of stable argsorts, least significant key
-first.
+first. top_k_batch sorts the keys and moves only the k winning rows.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
-from cockroach_tpu_torch.coldata.batch import Batch
+from cockroach_tpu_torch.coldata.batch import Batch, mask_padding
 
 
 @dataclass(frozen=True)
@@ -101,3 +101,21 @@ def sort_batch(batch: Batch, keys: Sequence[SortKey], schema=None) -> Batch:
     perm = sort_permutation(batch, keys, schema)
     sel = torch.arange(batch.capacity, device=batch.device) < batch.length
     return batch.gather(perm, sel=sel, length=batch.length)
+
+
+def top_k_batch(batch: Batch, keys: Sequence[SortKey], k: int,
+                schema=None) -> Batch:
+    """ORDER BY ... LIMIT k with a static output capacity of k rows: sort
+    the keys, then move only the k winning rows. Ties keep input order
+    (the sort is stable)."""
+    perm = sort_permutation(batch, keys, schema)
+    if k <= batch.capacity:
+        kidx = perm[:k]
+    else:
+        kidx = torch.cat([perm, torch.zeros(k - batch.capacity,
+                                            dtype=perm.dtype,
+                                            device=perm.device)])
+    length = torch.clamp(batch.length, max=k).to(torch.int32)
+    sel = torch.arange(k, device=batch.device) < length
+    out = batch.gather(kidx, sel=sel, length=length)
+    return Batch(mask_padding(out.columns, sel), sel, length)

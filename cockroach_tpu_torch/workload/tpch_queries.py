@@ -1,8 +1,10 @@
 """TPC-H queries as logical plans (sql/plan.py) + numpy oracles.
 
-Counterpart of cockroach_tpu/workload/tpch_queries.py, for Q1: its plan,
-its builder and its two numpy oracles. The oracles compute reference
-answers on the same generated data.
+Counterpart of cockroach_tpu/workload/tpch_queries.py, for Q1, Q3, Q6 and
+Q18: each query's plan, its builder, its numpy oracle and, for Q1, Q3 and
+Q18, its vectorized (columnar) numpy oracle. The oracles compute reference
+answers on the same generated data; the columnar ones run in seconds at
+SF 1, where the row loops take much longer.
 """
 
 from __future__ import annotations
@@ -14,10 +16,11 @@ import numpy as np
 from cockroach_tpu_torch.coldata.batch import DECIMAL, INT
 from cockroach_tpu_torch.exec.operators import Operator
 from cockroach_tpu_torch.ops.agg import AggSpec
-from cockroach_tpu_torch.ops.expr import BinOp, Cmp, Col, Lit
+from cockroach_tpu_torch.ops.expr import BinOp, BoolOp, Cmp, Col, Lit
 from cockroach_tpu_torch.ops.sort import SortKey
 from cockroach_tpu_torch.sql.plan import (
-    Aggregate, Filter, OrderBy, Project, Scan, TPCHCatalog, build,
+    Aggregate, Filter, Join, Limit, OrderBy, Project, Scan, TPCHCatalog,
+    build,
 )
 from cockroach_tpu_torch.workload.tpch import TPCH, _days
 
@@ -124,3 +127,197 @@ def q1_oracle_columnar(gen: TPCH, chunks=None):
             v[4] / v[5] / 100, v[5])
         for k, v in sorted(acc.items())
     }
+
+
+# ------------------------------------------------------------------- Q6 ---
+
+def q6_plan():
+    line = Scan("lineitem", ("l_shipdate", "l_discount", "l_quantity",
+                             "l_extendedprice"))
+    filt = Filter(line, BoolOp("and", (
+        Cmp(">=", Col("l_shipdate"), Lit(_days(1994, 1, 1), INT)),
+        Cmp("<", Col("l_shipdate"), Lit(_days(1995, 1, 1), INT)),
+        Cmp(">=", Col("l_discount"), Lit(0.05, DECIMAL(2))),
+        Cmp("<=", Col("l_discount"), Lit(0.07, DECIMAL(2))),
+        Cmp("<", Col("l_quantity"), Lit(24.0, DECIMAL(2))))))
+    proj = Project(filt, (("rev", BinOp("*", Col("l_extendedprice"),
+                                        Col("l_discount"))),))
+    return Aggregate(proj, (), (AggSpec("sum", "rev", "revenue"),))
+
+
+def q6(gen: TPCH, capacity: int = 1 << 17, catalog=None) -> Operator:
+    return _build(gen, q6_plan(), capacity, catalog)
+
+
+def q6_oracle(gen: TPCH) -> int:
+    t = gen.table("lineitem")
+    keep = ((t["l_shipdate"] >= _days(1994, 1, 1))
+            & (t["l_shipdate"] < _days(1995, 1, 1))
+            & (t["l_discount"] >= 5) & (t["l_discount"] <= 7)
+            & (t["l_quantity"] < 2400))
+    return int((t["l_extendedprice"][keep] * t["l_discount"][keep]).sum())
+
+
+# ------------------------------------------------------------------- Q3 ---
+
+Q3_DATE = _days(1995, 3, 15)
+
+
+def q3_plan():
+    # filters written ABOVE the joins: normalize pushes each conjunct to
+    # its side of the join and down to its scan
+    cust = Project(Scan("customer", ("c_custkey", "c_mktsegment")),
+                   (("c_custkey", Col("c_custkey")),
+                    ("c_mktsegment", Col("c_mktsegment"))))
+    orders = Scan("orders", ("o_orderkey", "o_custkey", "o_orderdate",
+                             "o_shippriority"))
+    orders_b = Filter(
+        Join(orders, Filter(cust, Cmp("==", Col("c_mktsegment"),
+                                      Lit("BUILDING"))),
+             ("o_custkey",), ("c_custkey",), how="semi"),
+        Cmp("<", Col("o_orderdate"), Lit(Q3_DATE, INT)))
+    line = Project(
+        Filter(Scan("lineitem", ("l_orderkey", "l_extendedprice",
+                                 "l_discount", "l_shipdate")),
+               Cmp(">", Col("l_shipdate"), Lit(Q3_DATE, INT))),
+        (("l_orderkey", Col("l_orderkey")),
+         ("rev", BinOp("*", Col("l_extendedprice"),
+                       BinOp("-", Lit(1.0, DECIMAL(2)),
+                             Col("l_discount"))))))
+    joined = Join(line, orders_b, ("l_orderkey",), ("o_orderkey",))
+    agg = Aggregate(joined,
+                    ("l_orderkey", "o_orderdate", "o_shippriority"),
+                    (AggSpec("sum", "rev", "revenue"),))
+    return Limit(OrderBy(agg, (SortKey("revenue", descending=True),
+                               SortKey("o_orderdate"))), 10)
+
+
+def q3(gen: TPCH, capacity: int = 1 << 17, catalog=None) -> Operator:
+    return _build(gen, q3_plan(), capacity, catalog)
+
+
+def q3_oracle(gen: TPCH):
+    """[(l_orderkey, revenue, o_orderdate)] of the top 10, by row loops."""
+    c = gen.table("customer")
+    o = gen.table("orders")
+    l = gen.table("lineitem")
+    seg = gen.schema("customer").dicts["c_mktsegment"]
+    seg_code = int(np.nonzero(seg == "BUILDING")[0][0])
+    bcust = set(c["c_custkey"][c["c_mktsegment"] == seg_code].tolist())
+    okeep = (o["o_orderdate"] < Q3_DATE) & np.isin(
+        o["o_custkey"], np.fromiter(bcust, dtype=np.int64))
+    odate = dict(zip(o["o_orderkey"][okeep].tolist(),
+                     o["o_orderdate"][okeep].tolist()))
+    lkeep = l["l_shipdate"] > Q3_DATE
+    rev: Dict[int, int] = {}
+    for ok, px, dc in zip(l["l_orderkey"][lkeep], l["l_extendedprice"][lkeep],
+                          l["l_discount"][lkeep]):
+        if int(ok) in odate:
+            rev[int(ok)] = rev.get(int(ok), 0) + int(px) * (100 - int(dc))
+    rows = [(-r, odate[k], k) for k, r in rev.items()]
+    rows.sort()
+    return [(k, -nr, od) for nr, od, k in rows[:10]]
+
+
+def q3_oracle_columnar(gen: TPCH):
+    """Vectorized numpy Q3: [(l_orderkey, revenue, o_orderdate,
+    o_shippriority)] of the top 10 (searchsorted joins, exact int64 group
+    sums)."""
+    c, o, l = gen.table("customer"), gen.table("orders"), gen.table("lineitem")
+    seg = gen.schema("customer").dicts["c_mktsegment"]
+    code = int(np.nonzero(seg == "BUILDING")[0][0])
+    bc = c["c_custkey"][c["c_mktsegment"] == code]
+    o_keep = (o["o_orderdate"] < Q3_DATE) & np.isin(o["o_custkey"], bc)
+    okey = o["o_orderkey"][o_keep]
+    order = np.argsort(okey)
+    okey_s = okey[order]
+    odate_s = o["o_orderdate"][o_keep][order]
+    oprio_s = o["o_shippriority"][o_keep][order]
+    lk = l["l_shipdate"] > Q3_DATE
+    lkey = l["l_orderkey"][lk]
+    pos = np.searchsorted(okey_s, lkey)
+    pos_c = np.minimum(pos, max(len(okey_s) - 1, 0))
+    m = (okey_s[pos_c] == lkey) if len(okey_s) else np.zeros(len(lkey), bool)
+    rev = (l["l_extendedprice"][lk][m].astype(np.int64)
+           * (100 - l["l_discount"][lk][m].astype(np.int64)))
+    uk, inv = np.unique(lkey[m], return_inverse=True)
+    sums = np.zeros(len(uk), np.int64)
+    np.add.at(sums, inv, rev)
+    p2 = np.searchsorted(okey_s, uk)
+    od, opr = odate_s[p2], oprio_s[p2]
+    top = np.lexsort((uk, od, -sums))[:10]
+    return [(int(uk[i]), int(sums[i]), int(od[i]), int(opr[i])) for i in top]
+
+
+# ------------------------------------------------------------------ Q18 ---
+
+def q18_plan(threshold: int = 300):
+    big = Project(
+        Filter(Aggregate(Scan("lineitem", ("l_orderkey", "l_quantity")),
+                         ("l_orderkey",),
+                         (AggSpec("sum", "l_quantity", "qty"),)),
+               Cmp(">", Col("qty"), Lit(float(threshold), DECIMAL(2)))),
+        (("big_okey", Col("l_orderkey")),))
+    o_big = Join(Scan("orders", ("o_orderkey", "o_custkey", "o_orderdate",
+                                 "o_totalprice")),
+                 big, ("o_orderkey",), ("big_okey",), how="semi")
+    oc = Join(o_big, Scan("customer", ("c_custkey", "c_name")),
+              ("o_custkey",), ("c_custkey",))
+    ol = Join(Scan("lineitem", ("l_orderkey", "l_quantity")), oc,
+              ("l_orderkey",), ("o_orderkey",))
+    agg = Aggregate(ol, ("c_name", "c_custkey", "o_orderkey",
+                         "o_orderdate", "o_totalprice"),
+                    (AggSpec("sum", "l_quantity", "sum_qty"),))
+    return Limit(OrderBy(agg, (SortKey("o_totalprice", descending=True),
+                               SortKey("o_orderdate"))), 100)
+
+
+def q18(gen: TPCH, threshold: int = 300,
+        capacity: int = 1 << 17, catalog=None) -> Operator:
+    return _build(gen, q18_plan(threshold), capacity, catalog)
+
+
+def q18_oracle(gen: TPCH, threshold: int = 300):
+    """[(c_name, c_custkey, o_orderkey, o_orderdate, o_totalprice,
+    sum_qty)] of the top 100, by row loops."""
+    o = gen.table("orders")
+    l = gen.table("lineitem")
+    c = gen.table("customer")
+    qty: Dict[int, int] = {}
+    for ok, q in zip(l["l_orderkey"].tolist(), l["l_quantity"].tolist()):
+        qty[ok] = qty.get(ok, 0) + int(q)
+    big = {k for k, v in qty.items() if v > threshold * 100}
+    cname = dict(zip(c["c_custkey"].tolist(), c["c_name"].tolist()))
+    rows = []
+    for i in range(len(o["o_orderkey"])):
+        ok = int(o["o_orderkey"][i])
+        if ok in big:
+            ck = int(o["o_custkey"][i])
+            rows.append((-int(o["o_totalprice"][i]), int(o["o_orderdate"][i]),
+                         int(cname[ck]), ck, ok, qty[ok]))
+    rows.sort()
+    return [(cn, ck, ok, od, -ntp, q)
+            for ntp, od, cn, ck, ok, q in rows[:100]]
+
+
+def q18_oracle_columnar(gen: TPCH, threshold: int = 300):
+    """Vectorized numpy Q18, in q18_oracle's row form (exact int64
+    quantity sums)."""
+    o, l, c = gen.table("orders"), gen.table("lineitem"), gen.table("customer")
+    lkeys = l["l_orderkey"]
+    qty = np.zeros(int(lkeys.max()) + 1 if len(lkeys) else 0, np.int64)
+    np.add.at(qty, lkeys, l["l_quantity"].astype(np.int64))
+    okeys = o["o_orderkey"]
+    in_range = okeys < len(qty)
+    oq = np.zeros(len(okeys), np.int64)
+    oq[in_range] = qty[okeys[in_range]]
+    keep = oq > threshold * 100
+    co = np.argsort(c["c_custkey"])
+    cname = c["c_name"][co][
+        np.searchsorted(c["c_custkey"][co], o["o_custkey"][keep])]
+    ck = o["o_custkey"][keep]
+    tp, od = o["o_totalprice"][keep], o["o_orderdate"][keep]
+    ok, q = okeys[keep], oq[keep]
+    top = np.lexsort((ok, ck, cname, od, -tp))[:100]
+    return [(int(cname[i]), int(ck[i]), int(ok[i]), int(od[i]), int(tp[i]),
+             int(q[i])) for i in top]

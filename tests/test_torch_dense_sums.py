@@ -336,7 +336,24 @@ def test_dense_aggregate_nullable_string_keys_matches_jax(jax_pallas):
 
 
 def test_unported_aggregations_raise():
-    for fn in (tagg.hash_aggregate, tagg.ordered_aggregate,
-               tagg.range_dense_aggregate):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn()
+    """range_dense_aggregate is the one aggregation left unported; the
+    sort-based ones now run, and over dense keys they find the groups
+    the dense route finds (tests/test_torch_hash_agg.py holds them
+    against the JAX package)."""
+    from cockroach_tpu_torch.ops.sort import SortKey, sort_batch
+
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tagg.range_dense_aggregate()
+    rng = np.random.default_rng(15)
+    jb = _random_batch(rng)
+    tb = port_batch(jb)
+    dense = tagg.dense_aggregate(tb, ("k",), _aggs(tagg), (4,)).compact()
+    for got in (tagg.hash_aggregate(tb, ["k"], _aggs(tagg), method="lex"),
+                tagg.ordered_aggregate(
+                    sort_batch(tb, [SortKey("k")]), ["k"], _aggs(tagg))):
+        assert int(got.length) == int(dense.length)
+        n = int(got.length)
+        for name in ("k", "s1", "s2", "c2", "n"):
+            np.testing.assert_array_equal(
+                got.col(name).values.numpy()[:n],
+                dense.col(name).values.numpy()[:n], err_msg=name)
