@@ -32,21 +32,31 @@ Phases, each printed on lines of its own:
      cold time, the median and every warm time, the FlowRestart count of
      each run (Q18's first aggregate, 1.5 M groups, overflows a 2^20
      accumulator: one restart on the cold run, none warm — anything else
-     fails), the host stage timers (scan.pack, scan.transfer, join.build,
-     agg.fold), the synchronizing CUDA calls of one warm run, and the
-     device time of one call of each layer (Q3's join build and probe,
-     Q18's aggregate partial and fold step, its top-K); then one JSON
-     line per query, the JSON line of kernels, the card line and, last,
-     the result line.
+     fails), the kernel launches of each run (set to 0 just before it and
+     read just after), the host stage timers (scan.pack, scan.transfer,
+     join.build, agg.fold, shrink), the synchronizing CUDA calls of one
+     warm run, and the device time of one call of each layer (Q3's join
+     build and probe, Q18's aggregate partial and fold step, its top-K);
+  7. TPC-H Q9, Q12 and Q14 at SF 1 in the same way, against
+     q9_oracle_columnar, q12_oracle_columnar and q14_oracle_columnar: no
+     run may restart (every ShrinkOp's start capacity exceeds its real
+     row count at SF 1), and each Q12 run must launch dense_sums once per
+     lineitem chunk (its GROUP BY on l_shipmode takes the dense route).
+     The device time of one call of Q9's ShrinkOp over the semi join's
+     6 x 2^20 lanes, Q9's composite-key join probe against partsupp and
+     Q12's dense GROUP BY of one batch; dense_sums at Q12's shape against
+     its plain version. Then one JSON line per query of phases 6 and 7,
+     the JSON line of kernels (dense_sums' launches in the Q1 run, and
+     by path: Q1 and Q12), the card line and, last, the result line.
 
 Phase 2 fails if ptxas reports spills in dense_sums' Q1 instantiation,
 or if its SASS (cuobjdump -sass) holds a shared-memory atomic (ATOMS).
 
 Any mismatch or exception exits non-zero. With --profile DIR, one more
-run of Q1, Q6, Q3 and Q18 each is traced with torch.profiler: the kernel
-tables go to DIR/<query>_profile.txt, the traces to
-DIR/<query>_trace.json, and phase 6 prints each query's device busy time
-and its ten longest device ops.
+run of each query is traced with torch.profiler: the kernel tables go to
+DIR/<query>_profile.txt, the traces to DIR/<query>_trace.json, and
+phases 6 and 7 print each query's device busy time, the join probes'
+cummax total and its ten longest device ops.
 """
 
 import argparse
@@ -309,18 +319,37 @@ def check_q1(res, oracle, rf_names, ls_names) -> None:
                 raise SystemExit(f"Q1 {k} {col}: {got} vs {ref}")
 
 
-# ------------------------------------------------------------ phase 6
+# ------------------------------------------------------------ phases 6, 7
 
-Q_NAMES = ("q6", "q3", "q18")
+PHASE6 = ("q6", "q3", "q18")
+PHASE7 = ("q9", "q12", "q14")
 Q18_THRESHOLD = 300  # the spec's
 # host stage timers printed per query (exec/stats.py)
-STAGES = ("scan.pack", "scan.transfer", "join.build", "agg.fold")
+STAGES = ("scan.pack", "scan.transfer", "join.build", "agg.fold", "shrink")
 Q_COLUMNS = {
     "q6": ("revenue",),
     "q3": ("l_orderkey", "revenue", "o_orderdate", "o_shippriority"),
     "q18": ("c_name", "c_custkey", "o_orderkey", "o_orderdate",
             "o_totalprice", "sum_qty"),
+    "q9": ("n_name", "o_year", "sum_profit"),
+    "q12": ("l_shipmode", "high_line_count", "low_line_count"),
+    "q14": ("promo_revenue", "total_revenue"),
 }
+# the tables each phase's queries scan, generated before the clock starts
+PHASE_TABLES = {6: ("customer", "orders", "lineitem"),
+                7: ("part", "supplier", "partsupp", "nation", "orders",
+                    "lineitem")}
+# FlowRestarts of the cold run (every warm run must have none): Q18's
+# first aggregate (1.5 M groups) overflows a 2^20 accumulator once; every
+# Shrink start capacity of the JAX plans exceeds its real row count at
+# SF 1
+COLD_RESTARTS = {"q18": 1}
+# the kernels each query's path runs, with the launches one run makes
+PATH_KERNELS = {"q12": {"dense_sums": lambda gen: -(
+    -gen.num_rows("lineitem") // CAPACITY)}}  # once per lineitem chunk
+# the cummax of the join probe (ops/sortjoin.py _run_build_broadcast), as
+# the profiler names its kernel
+CUMMAX_KERNEL = "scan_innermost_dim_with_indices"
 
 
 def feed_pregenerated(flow, gen, capacity: int) -> int:
@@ -351,21 +380,53 @@ def query_rows(name: str, res) -> list:
 
 
 def query_oracle(name: str, gen) -> list:
+    """The query's rows, in its ORDER BY, from its columnar oracle."""
     from cockroach_tpu_torch.workload import tpch_queries as tq
 
     if name == "q6":
         return [(tq.q6_oracle(gen),)]
     if name == "q3":
         return tq.q3_oracle_columnar(gen)
-    return tq.q18_oracle_columnar(gen, Q18_THRESHOLD)
+    if name == "q18":
+        return tq.q18_oracle_columnar(gen, Q18_THRESHOLD)
+    if name == "q9":
+        names = list(gen.schema("nation").dicts["n_name"])
+        rows = [(names.index(n), y, v)
+                for (n, y), v in tq.q9_oracle_columnar(gen).items()]
+        return sorted(rows, key=lambda r: (names[r[0]], -r[1]))
+    if name == "q12":
+        modes = gen.schema("lineitem").dicts["l_shipmode"]
+        return sorted(((m, h, lo) for m, (h, lo)
+                       in tq.q12_oracle_columnar(gen).items()),
+                      key=lambda r: modes[r[0]])
+    return [tq.q14_oracle_columnar(gen)]
+
+
+def query_flows(gen) -> dict:
+    """Each query's flow at SF 1, capacity 2^20, through the port's entry
+    points (workload.tpch_queries -> sql.plan.build)."""
+    from cockroach_tpu_torch.workload import tpch_queries as tq
+
+    return {"q6": lambda: tq.q6(gen, CAPACITY),
+            "q3": lambda: tq.q3(gen, CAPACITY),
+            "q18": lambda: tq.q18(gen, Q18_THRESHOLD, CAPACITY),
+            "q9": lambda: tq.q9(gen, CAPACITY),
+            "q12": lambda: tq.q12(gen, CAPACITY),
+            "q14": lambda: tq.q14(gen, CAPACITY)}
 
 
 def timed_collect(torch, stats, collect, flow, count_syncs: bool = False):
     """One run of the flow: (result, seconds, restarts, host stage
-    seconds, host syncs or None). With count_syncs, every synchronizing
-    CUDA call of the run is counted (torch.cuda.set_sync_debug_mode)."""
+    seconds, host syncs or None, kernel launches). With count_syncs,
+    every synchronizing CUDA call of the run is counted
+    (torch.cuda.set_sync_debug_mode). Each kernel's launch count is set
+    to 0 just before the run and read just after."""
     import warnings
 
+    from cockroach_tpu_torch.ops import cuda_kernels as ck
+
+    for k in ck.KERNELS:
+        k.launches = 0
     with stats.query_stats() as col, warnings.catch_warnings(
             record=True) as caught:
         warnings.simplefilter("always")
@@ -378,11 +439,13 @@ def timed_collect(torch, stats, collect, flow, count_syncs: bool = False):
             dt = time.perf_counter() - t0
         finally:
             torch.cuda.set_sync_debug_mode("default")
+    launches = {k.source.stem: k.launches for k in ck.KERNELS}
     syncs = (sum("synchroniz" in str(w.message) for w in caught)
              if count_syncs else None)
     restart = col.stages.get("flow.restart")
     stages = {s: col.stages[s].seconds for s in STAGES if s in col.stages}
-    return res, dt, (restart.events if restart else 0), stages, syncs
+    return (res, dt, (restart.events if restart else 0), stages, syncs,
+            launches)
 
 
 def layer_times(torch, flows, dev) -> dict:
@@ -432,9 +495,52 @@ def layer_times(torch, flows, dev) -> dict:
     return out
 
 
+def layer_times_phase7(torch, ck, flows, dev):
+    """Device ms (CUDA events, median of 10) of one call of each layer at
+    the shapes SF 1 gives it: Q9's ShrinkOp (concatenation and compaction
+    of the semi join's 6 x 2^20 output lanes), its composite-key join
+    against partsupp (one probe batch), and Q12's dense GROUP BY of one
+    batch through K1. Returns (times, the largest difference of K1 at
+    Q12's shape against its plain version)."""
+    from cockroach_tpu_torch.coldata.batch import concat_batches
+    from cockroach_tpu_torch.exec.operators import (
+        JoinOp, ShrinkOp, walk_operators,
+    )
+    from cockroach_tpu_torch.ops import agg as agg_ops
+    from cockroach_tpu_torch.ops.join import (
+        hash_join_prepared, prepare_build,
+    )
+
+    out = {}
+    q9 = list(walk_operators(flows["q9"]))
+    shrink = [op for op in q9 if isinstance(op, ShrinkOp)][0]
+    parts = list(shrink.child.batches(dev))
+    out["q9.shrink"] = event_ms(
+        torch, lambda: shrink.shrink(concat_batches(parts)), reps=10)
+    join = [op for op in q9 if isinstance(op, JoinOp)
+            and len(op.probe_on) == 2][0]
+    build = join._materialize_build(dev)
+    bt = prepare_build(build, join.build_on, mode="unique-mat")
+    probe = next(iter(join.probe.batches(dev)))
+    out["q9.join.probe"] = event_ms(
+        torch, lambda: hash_join_prepared(probe, bt, join.probe_on,
+                                          join.build_on, how="inner"),
+        reps=10)
+    agg = flows["q12"].child
+    b = next(iter(agg.child.batches(dev)))
+    out["q12.agg"] = event_ms(
+        torch, lambda: agg_ops.dense_aggregate(b, agg.group_by, agg.internal,
+                                               agg.dense_sizes), reps=10)
+    packed, values, live, d = agg_ops.dense_kernel_inputs(
+        b, agg.group_by, agg.internal, agg.dense_sizes)
+    worst = check_dense_case(torch, ck, "Q12's first batch", packed, values,
+                             live, d, ck.smem_per_block(dev))
+    return out, worst
+
+
 def trace_query(torch, collect, flow, path_stem: str):
     """One traced run: (device busy ms, wall ms, the ten longest device
-    ops as (name, total ms, count))."""
+    ops as (name, total ms, count), the cummax kernels' total ms)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -458,34 +564,35 @@ def trace_query(torch, collect, flow, path_stem: str):
             tot, cnt = per_op.get(e["name"], (0.0, 0))
             per_op[e["name"]] = (tot + e["dur"] / 1e3, cnt + 1)
     top = sorted(per_op.items(), key=lambda kv: -kv[1][0])[:10]
-    return busy_ms, wall_ms, [(n, t, c) for n, (t, c) in top]
+    cummax_ms = sum(t for n, (t, _c) in per_op.items()
+                    if CUMMAX_KERNEL in n)
+    return busy_ms, wall_ms, [(n, t, c) for n, (t, c) in top], cummax_ms
 
 
-def run_phase6(torch, gen, dev, profile_dir):
-    """Q6, Q3 and Q18 at SF 1 through the port on CUDA. -> {name: JSON
-    record}."""
+def run_query_phase(torch, gen, phase: int, names):
+    """Queries at SF 1 through the port on CUDA: a cold and WARM_RUNS
+    warm runs of each built flow, every run equal to the query's columnar
+    oracle, the restarts and kernel launches of every run held to
+    COLD_RESTARTS and PATH_KERNELS. -> ({name: JSON record}, flows)."""
     from cockroach_tpu_torch.exec import stats
     from cockroach_tpu_torch.exec.operators import collect
-    from cockroach_tpu_torch.workload import tpch_queries as tq
 
     t0 = time.perf_counter()
-    for t in ("customer", "orders", "lineitem"):
+    for t in PHASE_TABLES[phase]:
         gen.table(t)
-    builders = {"q6": lambda: tq.q6(gen, CAPACITY),
-                "q3": lambda: tq.q3(gen, CAPACITY),
-                "q18": lambda: tq.q18(gen, Q18_THRESHOLD, CAPACITY)}
-    flows = {n: builders[n]() for n in Q_NAMES}
-    oracles = {n: query_oracle(n, gen) for n in Q_NAMES}
-    fed = {n: feed_pregenerated(flows[n], gen, CAPACITY) for n in Q_NAMES}
-    print(f"[6] Q6, Q3, Q18 at SF {SF}, capacity {CAPACITY} (datagen + "
-          f"columnar oracles {time.perf_counter() - t0:.2f} s; scans fed "
-          f"{fed})", flush=True)
+    builders = query_flows(gen)
+    flows = {n: builders[n]() for n in names}
+    oracles = {n: query_oracle(n, gen) for n in names}
+    fed = {n: feed_pregenerated(flows[n], gen, CAPACITY) for n in names}
+    print(f"[{phase}] {', '.join(n.upper() for n in names)} at SF {SF}, "
+          f"capacity {CAPACITY} (datagen + columnar oracles "
+          f"{time.perf_counter() - t0:.2f} s; scans fed {fed})", flush=True)
     records = {}
-    for name in Q_NAMES:
+    for name in names:
         flow = flows[name]
-        runs, restarts, stage_runs = [], [], []
+        runs, restarts, stage_runs, launch_runs = [], [], [], []
         for i in range(1 + WARM_RUNS):
-            res, dt, n_restarts, stages, _ = timed_collect(
+            res, dt, n_restarts, stages, _, launches = timed_collect(
                 torch, stats, collect, flow)
             rows = query_rows(name, res)
             if rows != oracles[name]:
@@ -495,19 +602,29 @@ def run_phase6(torch, gen, dev, profile_dir):
             runs.append(dt)
             restarts.append(n_restarts)
             stage_runs.append(stages)
-        _res, _dt, _r, _s, syncs = timed_collect(torch, stats, collect, flow,
-                                                 count_syncs=True)
+            launch_runs.append(launches)
+        _res, _dt, _r, _s, syncs, _l = timed_collect(
+            torch, stats, collect, flow, count_syncs=True)
         cold, warm = runs[0], runs[1:]
         warm_s = statistics.median(warm)
-        want_cold = 1 if name == "q18" else 0
+        want_cold = COLD_RESTARTS.get(name, 0)
         if restarts[0] != want_cold or any(restarts[1:]):
             raise SystemExit(f"{name}: restarts {restarts}, expected "
                              f"{want_cold} on the cold run and none warm")
+        want_launches = PATH_KERNELS.get(name, {})
+        for k, counts in ((k, [lr[k] for lr in launch_runs])
+                          for k in launch_runs[0]):
+            want = want_launches[k](gen) if k in want_launches else 0
+            # a cold run that restarts runs its flow twice
+            if any(c != want * (1 + r) for c, r in zip(counts, restarts)):
+                raise SystemExit(f"{name}: {k} launched {counts} times per "
+                                 f"run, expected {want} a pass")
         print(f"  {name}: {len(oracles[name])} rows match the columnar "
               f"oracle in all {len(runs)} runs; cold {cold:.4f} s, warm "
               f"median {warm_s:.4f} s of {[round(w, 4) for w in warm]}; "
-              f"restarts per run {restarts}; synchronizing CUDA calls in "
-              f"one warm run {syncs}", flush=True)
+              f"restarts per run {restarts}; kernel launches per run "
+              f"{launch_runs[-1]}; synchronizing CUDA calls in one warm "
+              f"run {syncs}", flush=True)
         for label, st in (("cold", stage_runs[0]), ("last warm",
                                                     stage_runs[-1])):
             print(f"  {name} host stages, {label} run: "
@@ -516,34 +633,65 @@ def run_phase6(torch, gen, dev, profile_dir):
         records[name] = {"sf": SF, "capacity": CAPACITY, "cold_s": cold,
                          "warm_s": warm_s, "warm_runs_s": warm,
                          "restarts": restarts,
+                         "kernel_launches": launch_runs[-1],
                          "host_stages_warm_s": stage_runs[-1],
                          "host_syncs_warm": syncs}
-    layers = layer_times(torch, flows, dev)
+    return records, flows
+
+
+def profile_queries(torch, records, flows, profile_dir) -> None:
+    """One traced run of each query: its device busy time, the ten
+    longest device ops and the join probe's cummax total."""
+    from cockroach_tpu_torch.exec.operators import collect
+
+    for name, flow in flows.items():
+        busy, wall, top, cummax = trace_query(
+            torch, collect, flow, os.path.join(profile_dir, name))
+        records[name]["device_busy_ms"] = busy
+        records[name]["traced_wall_ms"] = wall
+        records[name]["cummax_ms"] = cummax
+        print(f"  traced {name} run: device busy {busy:.3f} ms of "
+              f"{wall:.3f} ms wall; cummax {cummax:.3f} ms; ten longest "
+              f"device ops (total ms, count):", flush=True)
+        for op, ms, cnt in top:
+            print(f"    {ms:9.3f} {cnt:5d}  {op[:110]}")
+
+
+def add_layers(records, layers) -> None:
     print("  layers, device ms per call: " + ", ".join(
         f"{k} {v:.4f}" for k, v in layers.items()), flush=True)
-    for name in Q_NAMES:
+    for name in records:
         records[name]["layers_ms"] = {k: v for k, v in layers.items()
                                       if k.startswith(name + ".")}
+
+
+def run_phase6(torch, gen, dev, profile_dir):
+    """Q6, Q3 and Q18 at SF 1 through the port on CUDA. -> {name: JSON
+    record}."""
+    records, flows = run_query_phase(torch, gen, 6, PHASE6)
+    add_layers(records, layer_times(torch, flows, dev))
     if profile_dir:
-        for name in Q_NAMES:
-            busy, wall, top = trace_query(
-                torch, collect, flows[name],
-                os.path.join(profile_dir, name))
-            records[name]["device_busy_ms"] = busy
-            records[name]["traced_wall_ms"] = wall
-            print(f"  traced {name} run: device busy {busy:.3f} ms of "
-                  f"{wall:.3f} ms wall; ten longest device ops "
-                  f"(total ms, count):", flush=True)
-            for op, ms, cnt in top:
-                print(f"    {ms:9.3f} {cnt:5d}  {op[:110]}")
+        profile_queries(torch, records, flows, profile_dir)
     return records
+
+
+def run_phase7(torch, ck, gen, dev, profile_dir):
+    """Q9, Q12 and Q14 at SF 1 through the port on CUDA. -> ({name: JSON
+    record}, K1's largest difference from its plain version at Q12's
+    shape)."""
+    records, flows = run_query_phase(torch, gen, 7, PHASE7)
+    layers, worst = layer_times_phase7(torch, ck, flows, dev)
+    add_layers(records, layers)
+    if profile_dir:
+        profile_queries(torch, records, flows, profile_dir)
+    return records, worst
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", metavar="DIR",
-                    help="trace one more run of Q1, Q6, Q3 and Q18 and "
-                    "write their kernel tables")
+                    help="trace one more run of each query and write "
+                    "their kernel tables")
     args = ap.parse_args()
 
     import torch
@@ -736,6 +884,10 @@ def main() -> int:
 
     # ---- 6. Q6, Q3 and Q18 at SF 1
     query_records = run_phase6(torch, gen, dev, args.profile)
+    # ---- 7. Q9, Q12 and Q14 at SF 1
+    records7, worst7 = run_phase7(torch, ck, gen, dev, args.profile)
+    query_records.update(records7)
+    worst = max(worst, worst7)
 
     kernels = [{
         "name": "dense_sums",
@@ -743,6 +895,9 @@ def main() -> int:
         "source": "cockroach_tpu_torch/csrc/dense_sums.cu",
         "replaces": "cockroach_tpu/ops/pallas_kernels.py:89",
         "launches": launches["dense_sums"],
+        "launches_by_path": {
+            "q1": launches["dense_sums"],
+            "q12": query_records["q12"]["kernel_launches"]["dense_sums"]},
         "max_abs_err": worst,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
@@ -753,7 +908,7 @@ def main() -> int:
     print(json.dumps({"q1": {"sf": SF, "capacity": CAPACITY,
                              "cold_s": cold, "warm_s": warm_s,
                              "warm_runs_s": warm}}))
-    for name in Q_NAMES:
+    for name in PHASE6 + PHASE7:
         print(json.dumps({name: query_records[name]}))
     print(json.dumps({"kernels": kernels}))
     print(card)

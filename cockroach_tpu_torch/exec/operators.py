@@ -1,17 +1,19 @@
 """Streaming operator tree over device batches.
 
 Counterpart of cockroach_tpu/exec/operators.py, for the operators on the
-paths of TPC-H Q1, Q3, Q6 and Q18: ScanOp -> MapOp (filter, projection)
--> HashAggOp (the dense route, and the sort route with its scalar case),
-OrderedAggOp, JoinOp, SortOp (in memory), TopKOp and LimitOp. An
-operator yields Batches on the device that `collect` names; PyTorch runs
-eagerly, so there is no jit and no fused whole-flow program.
+paths of TPC-H Q1, Q3, Q6, Q9, Q12, Q14 and Q18: ScanOp -> MapOp
+(filter, projection) -> HashAggOp (the dense route, and the sort route
+with its scalar case), OrderedAggOp, JoinOp, ShrinkOp, SortOp (in
+memory), TopKOp and LimitOp. An operator yields Batches on the device
+that `collect` names; PyTorch runs eagerly, so there is no jit and no
+fused whole-flow program.
 
 No operator reads a device value back to the host inside its batch loop.
 A deferred capacity or correctness check (aggregate overflow, hash
-collision, duplicate build key) is a 0-d device flag OR-ed across batches
-and read once at the end of the stream; a raised flag ends the stream
-with FlowRestart, and `run_flow` widens the operator and reruns the flow.
+collision, duplicate build key, ShrinkOp overflow) is a 0-d device flag
+OR-ed across batches and read once at the end of the stream; a raised
+flag ends the stream with FlowRestart, and `run_flow` widens the
+operator and reruns the flow.
 
 Not ported yet (ROADMAP.md queue 1): the range-dense GROUP BY, the grace
 (out-of-core) paths of HashAggOp and JoinOp, the external sort, the fused
@@ -144,14 +146,18 @@ class MapOp(Operator):
         for kind, payload in self.steps:
             if kind == "project":
                 self.schema = _project_schema(self.schema, payload)
+        # the expressions' dictionary tables, built once per device
+        # (ops/expr.py Tables)
+        self._tables: Dict[tuple, object] = {}
 
     def _run(self, batch: Batch) -> Batch:
         schema = self.child.schema
         for kind, payload in self.steps:
             if kind == "filter":
-                batch = batch.filter(filter_mask(payload, batch, schema))
+                batch = batch.filter(filter_mask(payload, batch, schema,
+                                                 self._tables))
             else:
-                cols = {name: eval_expr(e, batch, schema)
+                cols = {name: eval_expr(e, batch, schema, self._tables)
                         for name, e in payload}
                 batch = Batch(cols, batch.sel, batch.length)
                 schema = _project_schema(schema, payload)
@@ -592,6 +598,57 @@ class LimitOp(Operator):
             if prev_carry is not None and int(prev_carry) >= bound:
                 return
             prev_carry = carry
+
+
+class ShrinkOp(Operator):
+    """Capacity compaction: the child's whole output, concatenated, packed
+    into a small static capacity C. Downstream operators then work on C
+    lanes instead of the child's (Q9's semi join against green parts
+    keeps about 5% of 6 x 2^20 lineitem lanes; Q18's HAVING keeps a few
+    dozen rows of its aggregate's 2^21 lanes).
+
+    It keeps the first C selected lanes in order: a stable argsort of the
+    dead-lane mask, then a gather of C rows. More than C selected rows
+    set a 0-d overflow flag, read once after the child's stream; a set
+    flag raises FlowRestart, and widen() multiplies C by GROWTH."""
+
+    GROWTH = 16
+
+    def __init__(self, child: Operator, capacity: int):
+        self.child = child
+        self.capacity = capacity
+        self.schema = child.schema
+
+    def widen(self):
+        self.capacity *= self.GROWTH
+
+    def shrink(self, m: Batch) -> Tuple[Batch, torch.Tensor]:
+        """-> (m's first C selected rows as a batch of capacity C, the
+        0-d overflow flag). Only the C winning rows are gathered."""
+        c = self.capacity
+        dev = m.device
+        order = torch.argsort((~m.sel).to(torch.uint8), stable=True)
+        if m.capacity >= c:
+            kidx = order[:c]
+        else:
+            kidx = torch.cat([order, order.new_zeros(c - m.capacity)])
+        length = torch.clamp(m.length, max=c).to(torch.int32)
+        sel = torch.arange(c, device=dev) < length
+        out = m.gather(kidx, sel=sel, length=length)
+        return (Batch(mask_padding(out.columns, sel), sel, length),
+                m.length > c)
+
+    def batches(self, device: torch.device) -> Iterator[Batch]:
+        parts = list(self.child.batches(device))
+        if not parts:
+            return
+        with stats.timed("shrink"):
+            merged = concat_batches(parts) if len(parts) > 1 else parts[0]
+            out, overflow = self.shrink(merged)
+        # the deferred check: ONE readback, after the child's stream
+        if bool(overflow):
+            raise FlowRestart(self)
+        yield out
 
 
 # ------------------------------------------------------------------ walking

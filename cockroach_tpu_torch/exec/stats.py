@@ -15,6 +15,7 @@ device attribution trace a run with torch.profiler (chip_smoke.py
   scan.transfer   enqueueing its host-to-device copy
   agg.fold        a GROUP BY's per-batch partial and fold
   join.build      a join's build side: compaction, repack, prepare
+  shrink          a ShrinkOp's concatenation and compaction
   flow.restart    one event per FlowRestart rerun of the flow
 
 Zero overhead when disabled (module flag checked per call site).

@@ -2,20 +2,40 @@
 projection.
 
 Counterpart of cockroach_tpu/ops/expr.py, for the nodes Col, Lit, BinOp,
-Cmp, BoolOp, Not and IsNull. Semantics follow SQL:
+Cmp, BoolOp, Not, IsNull, Case, Cast, InList, Like, Extract and
+ScalarFunc. Semantics follow SQL:
 - three-valued logic: any NULL operand of arithmetic/comparison yields
   NULL; AND/OR are Kleene;
 - a filter keeps rows whose predicate is TRUE (NULL drops);
 - decimals are int64 scaled by 10^scale: +/- align scales, * adds scales
   (int64 products wrap), / produces float32;
-- strings are dictionary codes; predicates against literals are resolved
-  host-side through the schema's dictionary.
+- strings are dictionary codes; predicates against literals (=, <, IN,
+  LIKE) are resolved host-side through the schema's dictionary into
+  literal codes or a boolean table indexed by code;
+- dates are int32 days since the epoch; EXTRACT runs the civil-calendar
+  integer algorithm on the device.
+
+The results equal the JAX package's compiled (jit) programs bit for bit,
+which differ from PyTorch's eager arithmetic in three places the port
+makes explicit:
+- XLA's float -> integer conversion saturates (NaN -> 0, +-inf and
+  out-of-range values -> the integer type's bounds); PyTorch leaves those
+  inputs undefined (INT_MIN for all of them on the CPU), so the port
+  clamps explicitly (_to_dtype);
+- XLA's compiled float arithmetic treats subnormal float32 operands as
+  zero and flushes subnormal results to zero (_ftz);
+- `//` is floor division and `mod` truncates (lax.rem), as in the JAX
+  package.
+
+VecLit and VecDistance (ops/vector.py) and StrFunc (the row engine) are
+not ported: their evaluation raises, naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
 
+import re
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -26,7 +46,11 @@ from cockroach_tpu_torch.coldata.batch import (
 )
 
 # where each JAX expression node that is not ported yet is queued
-_NOT_PORTED = "not ported yet (ROADMAP.md queue 1, item 2: the remaining eval_expr nodes)"
+_NOT_PORTED = "not ported yet (ROADMAP.md queue 1)"
+_VECTORS_NOT_PORTED = ("vector expressions are not ported yet (ROADMAP.md "
+                       "queue 1, item 10: vectors)")
+_STRFUNC_NOT_PORTED = ("computed strings evaluate through the row engine, "
+                       "which is not ported yet (ROADMAP.md queue 1, item 7)")
 
 
 class Expr:
@@ -147,6 +171,108 @@ class IsNull(Expr):
         return BOOL
 
 
+@dataclass(frozen=True, eq=False)
+class Case(Expr):
+    whens: Tuple[Tuple[Expr, Expr], ...]
+    otherwise: Optional[Expr] = None
+
+    def type(self, schema):
+        return self.whens[0][1].type(schema)
+
+
+@dataclass(frozen=True, eq=False)
+class Cast(Expr):
+    arg: Expr
+    to: ColType
+
+    def type(self, schema):
+        return self.to
+
+
+@dataclass(frozen=True, eq=False)
+class InList(Expr):
+    arg: Expr
+    values: Tuple[object, ...]
+
+    def type(self, schema):
+        return BOOL
+
+
+@dataclass(frozen=True, eq=False)
+class Like(Expr):
+    """SQL LIKE over a dictionary-encoded string column (%/_ wildcards).
+    Resolved host-side: pattern -> bool table over the dictionary."""
+
+    arg: Expr  # must be a STRING Col
+    pattern: str
+    negate: bool = False
+
+    def type(self, schema):
+        return BOOL
+
+
+@dataclass(frozen=True, eq=False)
+class Extract(Expr):
+    part: str  # "year" | "month" | "day"
+    arg: Expr
+
+    def type(self, schema):
+        return INT
+
+
+@dataclass(frozen=True, eq=False)
+class VecLit(Expr):
+    """Constant query vector (not evaluated by the port yet)."""
+
+    values: Tuple[float, ...]
+
+    def type(self, schema):
+        return ColType(Kind.VECTOR, len(self.values))
+
+
+@dataclass(frozen=True, eq=False)
+class VecDistance(Expr):
+    """`<->` / `<=>` between vectors (not evaluated by the port yet)."""
+
+    metric: str  # "l2" | "cos"
+    left: Expr
+    right: Expr
+
+    def type(self, schema):
+        return FLOAT
+
+
+@dataclass(frozen=True, eq=False)
+class ScalarFunc(Expr):
+    """Device-evaluable scalar builtins: abs, mod, sign, floor, ceil,
+    coalesce, nullif, greatest, least, length (string dictionary lookup,
+    table resolved at bind time)."""
+
+    func: str
+    args: Tuple[Expr, ...]
+    # length(): host-resolved per-code lengths of the column dictionary
+    table: Optional[Tuple[int, ...]] = None
+
+    def type(self, schema):
+        if self.func in ("length", "sign", "floor", "ceil"):
+            return INT
+        # the first argument's type
+        return self.args[0].type(schema) if self.args else INT
+
+
+@dataclass(frozen=True, eq=False)
+class StrFunc(Expr):
+    """Computed string expression: upper/lower/substring/concat (the row
+    engine's; not evaluated by the port yet)."""
+
+    func: str
+    args: Tuple[Expr, ...]
+    params: Tuple[int, ...] = ()
+
+    def type(self, schema):
+        return STRING
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -165,6 +291,46 @@ def decimal_unscale(scale: int, device) -> torch.Tensor:
     multiplies by the same reciprocal, so both round alike."""
     return _scalar(np.float32(1.0) / np.float32(10 ** scale), torch.float32,
                    device)
+
+
+def _ftz(v: torch.Tensor) -> torch.Tensor:
+    """Subnormal float lanes as zero of the same sign. The JAX package's
+    compiled programs treat subnormal float32 operands of arithmetic,
+    comparisons, min/max, sign and floor/ceil as zero and flush subnormal
+    results of arithmetic to zero; PyTorch computes with them, so the
+    port flushes those operands and results explicitly."""
+    tiny = torch.finfo(v.dtype).tiny
+    return torch.where(v.abs() < tiny,
+                       torch.copysign(torch.zeros((), dtype=v.dtype,
+                                                  device=v.device), v), v)
+
+
+def _to_dtype(v: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """`v.astype(dtype)` as the JAX package's compiled programs convert:
+    float -> integer saturates (NaN -> 0, values at or past the integer
+    type's bounds, +-inf included, -> those bounds; the rest truncate
+    toward zero), and float -> bool is `!= 0` with subnormals as zero.
+    Every other conversion is PyTorch's own, which agrees."""
+    if v.dtype == dtype or not v.dtype.is_floating_point:
+        return v.to(dtype)
+    if dtype == torch.bool:
+        return _ftz(v) != 0
+    if dtype.is_floating_point:
+        return v.to(dtype)
+    info = torch.iinfo(dtype)
+    hi = -float(info.min)  # 2^(bits-1): exact in float32
+    big, small = v >= hi, v < float(info.min)
+    safe = torch.where(big | small | torch.isnan(v),
+                       torch.zeros((), dtype=v.dtype, device=v.device), v)
+    out = safe.to(dtype)
+    out = torch.where(big, torch.full((), info.max, dtype=dtype,
+                                      device=v.device), out)
+    return torch.where(small, torch.full((), info.min, dtype=dtype,
+                                         device=v.device), out)
+
+
+def _floordiv(a: torch.Tensor, b) -> torch.Tensor:
+    return torch.div(a, b, rounding_mode="floor")
 
 
 def _rescale(values: torch.Tensor, from_scale: int, to_scale: int) -> torch.Tensor:
@@ -203,10 +369,39 @@ def _cmp(op: str, lv, rv) -> torch.Tensor:
             "<=": lv <= rv, ">": lv > rv, ">=": lv >= rv}[op]
 
 
-def eval_expr(expr: Expr, batch: Batch, schema: Schema) -> Column:
-    """Evaluate to a Column of batch.capacity lanes."""
+# Tables: what an operator keeps between batches for one schema, keyed by
+# (id of the expression node, device) -> a host-resolved table already on
+# the device (LIKE's match table, ordering and rank tables, length()),
+# or the literal codes of a string IN list. An operator's expressions
+# and schema are fixed, so each entry is built once per operator and
+# device instead of once per batch.
+Tables = Dict[tuple, object]
+
+
+def _table(tables: Tables, expr: Expr, device,
+           make: Callable[[], object]):
+    key = (id(expr), device)
+    hit = tables.get(key)
+    if hit is None:
+        hit = tables[key] = make()
+    return hit
+
+
+def _lookup(table: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """table[clip(codes, 0, len - 1)], the JAX package's clipped gather."""
+    return table[codes.clamp(0, table.shape[0] - 1).long()]
+
+
+def eval_expr(expr: Expr, batch: Batch, schema: Schema,
+              tables: Tables) -> Column:
+    """Evaluate to a Column of batch.capacity lanes. `tables` (a dict the
+    caller keeps across batches of one schema) holds the host-resolved
+    dictionary tables, so that they are built and copied once."""
     cap = batch.capacity
     dev = batch.device
+
+    def ev(e: Expr) -> Column:
+        return eval_expr(e, batch, schema, tables)
 
     if isinstance(expr, Col):
         return batch.col(expr.name)
@@ -221,13 +416,14 @@ def eval_expr(expr: Expr, batch: Batch, schema: Schema) -> Column:
                 and not isinstance(v, bool):
             v = round(v * 10 ** ty.scale)
         if ty.kind is Kind.STRING:
-            raise ValueError("string literals must appear inside Cmp")
+            raise ValueError(
+                "string literals must appear inside Cmp/InList/Like")
         return Column(torch.full((cap,), v, dtype=ty.dtype, device=dev))
 
     if isinstance(expr, BinOp):
         lt, rt = expr.left.type(schema), expr.right.type(schema)
-        lc = eval_expr(expr.left, batch, schema)
-        rc = eval_expr(expr.right, batch, schema)
+        lc = ev(expr.left)
+        rc = ev(expr.right)
         validity = _combine_validity(lc, rc)
         out_ty = expr.type(schema)
 
@@ -255,7 +451,7 @@ def eval_expr(expr: Expr, batch: Batch, schema: Schema) -> Column:
                 vals = lv / torch.where(rv == 0, one, rv)
             else:
                 vals = {"+": lv + rv, "-": lv - rv, "*": lv * rv}[expr.op]
-            return Column(vals, validity)
+            return Column(_ftz(vals), validity)
 
         lv, rv = lc.values, rc.values
         if out_ty.kind is Kind.DATE:
@@ -272,20 +468,20 @@ def eval_expr(expr: Expr, batch: Batch, schema: Schema) -> Column:
         # string vs literal: compare dictionary codes
         if lt.kind is Kind.STRING and isinstance(expr.right, Lit):
             col = _find_string_col(expr.left)
-            code = _string_code(schema, col, expr.right.value)
-            lc = eval_expr(expr.left, batch, schema)
+            lc = ev(expr.left)
             if expr.op in ("==", "!="):
+                code = _table(tables, expr, dev, lambda: _string_code(
+                    schema, col, expr.right.value))
                 vals = lc.values == code
                 if expr.op == "!=":
                     vals = ~vals
                 return Column(vals, lc.validity)
             # ordering comparison against a literal: host-built table
-            d = schema.dictionary(col)
-            table = _cmp_table(d, expr.op, expr.right.value, dev)
-            return Column(table[lc.values.clamp(0, len(d) - 1).long()],
-                          lc.validity)
-        lc = eval_expr(expr.left, batch, schema)
-        rc = eval_expr(expr.right, batch, schema)
+            table = _table(tables, expr, dev, lambda: _cmp_table(
+                schema.dictionary(col), expr.op, expr.right.value, dev))
+            return Column(_lookup(table, lc.values), lc.validity)
+        lc = ev(expr.left)
+        rc = ev(expr.right)
         validity = _combine_validity(lc, rc)
         if lt.kind is Kind.STRING and rt.kind is Kind.STRING:
             lname, rname = _find_string_col(expr.left), _find_string_col(expr.right)
@@ -300,17 +496,16 @@ def eval_expr(expr: Expr, batch: Batch, schema: Schema) -> Column:
             else:
                 # codes are in first-occurrence order, not lexicographic:
                 # map through a host-built rank table
-                d = schema.dictionary(lname)
-                rank = torch.from_numpy(
-                    np.argsort(np.argsort(d.astype(str)))).to(dev)
-                lv = rank[lc.values.clamp(0, len(d) - 1).long()]
-                rv = rank[rc.values.clamp(0, len(d) - 1).long()]
+                rank = _table(tables, expr, dev, lambda: torch.from_numpy(
+                    np.argsort(np.argsort(schema.dictionary(lname).astype(
+                        str)))).to(dev))
+                lv, rv = _lookup(rank, lc.values), _lookup(rank, rc.values)
             return Column(_cmp(expr.op, lv, rv), validity)
         lv, rv = _numeric_align(lc.values, lt, rc.values, rt)
         return Column(_cmp(expr.op, lv, rv), validity)
 
     if isinstance(expr, BoolOp):
-        cols = [eval_expr(a, batch, schema) for a in expr.args]
+        cols = [ev(a) for a in expr.args]
         none = torch.zeros(cap, dtype=torch.bool, device=dev)
         any_null = none
         # Kleene: track (value, known)
@@ -337,16 +532,209 @@ def eval_expr(expr: Expr, batch: Batch, schema: Schema) -> Column:
         return Column(val | known_true, validity)
 
     if isinstance(expr, Not):
-        c = eval_expr(expr.arg, batch, schema)
+        c = ev(expr.arg)
         return Column(~c.values, c.validity)
 
     if isinstance(expr, IsNull):
-        c = eval_expr(expr.arg, batch, schema)
+        c = ev(expr.arg)
         isnull = (torch.zeros(cap, dtype=torch.bool, device=dev)
                   if c.validity is None else ~c.validity)
         return Column(~isnull if expr.negate else isnull)
 
+    if isinstance(expr, ScalarFunc):
+        return _scalar_func(expr, [ev(a) for a in expr.args], schema, tables)
+
+    if isinstance(expr, Case):
+        vals = None
+        validity = None
+        decided = torch.zeros(cap, dtype=torch.bool, device=dev)
+        for cond, res in expr.whens:
+            cc = ev(cond)
+            hit = cc.values & cc.valid_mask() & ~decided
+            rc = ev(res)
+            if vals is None:
+                vals = torch.where(hit, rc.values, torch.zeros(
+                    (), dtype=rc.values.dtype, device=dev))
+                validity = hit & rc.valid_mask()
+            else:
+                vals = torch.where(hit, _to_dtype(rc.values, vals.dtype),
+                                   vals)
+                validity = torch.where(hit, rc.valid_mask(), validity)
+            decided = decided | hit
+        if expr.otherwise is not None:
+            oc = ev(expr.otherwise)
+            vals = torch.where(decided, vals,
+                               _to_dtype(oc.values, vals.dtype))
+            validity = torch.where(decided, validity, oc.valid_mask())
+        # rows not decided and no ELSE => NULL
+        return Column(vals, validity)
+
+    if isinstance(expr, Cast):
+        c = ev(expr.arg)
+        ft = expr.arg.type(schema)
+        tt = expr.to
+        v = c.values
+        if ft.kind is Kind.DECIMAL and tt.kind is Kind.FLOAT:
+            v = _decimal_to_float(v, ft.scale)
+        elif ft.kind is Kind.DECIMAL and tt.kind is Kind.DECIMAL:
+            v = _rescale(v, ft.scale, tt.scale)
+        elif tt.kind is Kind.DECIMAL and ft.kind is not Kind.FLOAT:
+            v = v.to(torch.int64) * (10 ** tt.scale)
+        elif tt.kind is Kind.DECIMAL:
+            # round half to even, as jnp.round; a subnormal product
+            # rounds to zero whether flushed or not
+            v = _to_dtype(torch.round(v * _scalar(
+                np.float32(10 ** tt.scale), torch.float32, dev)),
+                torch.int64)
+        else:
+            v = _to_dtype(v, tt.dtype)
+        return Column(v, c.validity)
+
+    if isinstance(expr, InList):
+        ty = expr.arg.type(schema)
+        c = ev(expr.arg)
+        hit = torch.zeros(cap, dtype=torch.bool, device=dev)
+        if ty.kind is Kind.STRING:
+            col = _find_string_col(expr.arg)
+            codes = _table(tables, expr, dev, lambda: [
+                _string_code(schema, col, s) for s in expr.values])
+            for code in codes:
+                hit = hit | (c.values == code)
+            return Column(hit, c.validity)
+        flt = c.values.dtype.is_floating_point
+        vals = _ftz(c.values) if flt else c.values
+        for v in expr.values:
+            if ty.kind is Kind.DECIMAL and isinstance(v, float):
+                v = round(v * 10 ** ty.scale)
+            # the literal in the column's dtype, as jnp.asarray(v, dtype)
+            lit = _scalar(torch.tensor(v, dtype=c.values.dtype).item(),
+                          c.values.dtype, dev)
+            hit = hit | (vals == (_ftz(lit) if flt else lit))
+        return Column(hit, c.validity)
+
+    if isinstance(expr, Like):
+        col = _find_string_col(expr.arg)
+        table = _table(tables, expr, dev, lambda: _like_table(
+            schema.dictionary(col), expr.pattern, dev))
+        c = ev(expr.arg)
+        hit = _lookup(table, c.values) & (c.values >= 0)
+        if expr.negate:
+            hit = ~hit
+        return Column(hit, c.validity)
+
+    if isinstance(expr, Extract):
+        c = ev(expr.arg)
+        y, m, day = _civil_from_days(c.values.to(torch.int64))
+        return Column({"year": y, "month": m, "day": day}[expr.part],
+                      c.validity)
+
+    if isinstance(expr, (VecLit, VecDistance)):
+        raise NotImplementedError(f"{type(expr).__name__}: "
+                                  f"{_VECTORS_NOT_PORTED}")
+    if isinstance(expr, StrFunc):
+        raise NotImplementedError(f"StrFunc: {_STRFUNC_NOT_PORTED}")
     raise NotImplementedError(f"{type(expr).__name__}: {_NOT_PORTED}")
+
+
+def _scalar_func(expr: ScalarFunc, cs, schema: Schema,
+                 tables: Tables) -> Column:
+    f = expr.func
+    if f == "length":
+        c = cs[0]
+        dev = c.values.device
+        tbl = _table(tables, expr, dev, lambda: torch.tensor(
+            expr.table, dtype=torch.int64, device=dev))
+        return Column(_lookup(tbl, c.values.to(torch.int32)), c.validity)
+    if f == "coalesce":
+        vals = cs[0].values
+        valid = cs[0].valid_mask()
+        for c in cs[1:]:
+            vals = torch.where(valid, vals, _to_dtype(c.values, vals.dtype))
+            valid = valid | c.valid_mask()
+        return Column(vals, valid)
+    if f == "nullif":
+        a, b = cs
+        av, bv = a.values, _to_dtype(b.values, a.values.dtype)
+        if av.dtype.is_floating_point:
+            av, bv = _ftz(av), _ftz(bv)
+        eq = (av == bv) & a.valid_mask() & b.valid_mask()
+        return Column(a.values, a.valid_mask() & ~eq)
+    if f == "abs":
+        c = cs[0]
+        return Column(torch.abs(c.values), c.validity)
+    if f == "sign":
+        c = cs[0]
+        v = _ftz(c.values) if c.values.dtype.is_floating_point else c.values
+        return Column(_to_dtype(torch.sign(v), torch.int64), c.validity)
+    if f == "mod":
+        a, b = cs
+        bv = _to_dtype(b.values, a.values.dtype)
+        zero = (_ftz(bv) if bv.dtype.is_floating_point else bv) == 0
+        # mod 0 -> NULL
+        validity = _and_validity(_combine_validity(a, b), ~zero)
+        safe = torch.where(zero, torch.ones((), dtype=bv.dtype,
+                                            device=bv.device), bv)
+        return Column(_rem(a.values, safe), validity)
+    if f in ("greatest", "least"):
+        op = torch.maximum if f == "greatest" else torch.minimum
+        vals = cs[0].values
+        valid = cs[0].valid_mask()
+        flt = vals.dtype.is_floating_point
+        for c in cs[1:]:
+            other = _to_dtype(c.values, vals.dtype)
+            both = valid & c.valid_mask()
+            best = op(_ftz(vals), _ftz(other)) if flt else op(vals, other)
+            vals = torch.where(both, best,
+                               torch.where(c.valid_mask() & ~valid,
+                                           other, vals))
+            valid = valid | c.valid_mask()
+        return Column(vals, valid)  # SQL: NULL args are skipped
+    if f in ("floor", "ceil"):
+        c = cs[0]
+        ty = expr.args[0].type(schema)
+        if ty.kind is Kind.DECIMAL:
+            s = 10 ** ty.scale
+            v = c.values.to(torch.int64)
+            q = _floordiv(v, s) if f == "floor" else -_floordiv(-v, s)
+            return Column(q, c.validity)
+        if c.values.dtype.is_floating_point:
+            fn = torch.floor if f == "floor" else torch.ceil
+            return Column(_to_dtype(fn(_ftz(c.values)), torch.int64),
+                          c.validity)
+        return Column(c.values.to(torch.int64), c.validity)
+    raise ValueError(f"unknown scalar function {f!r}")
+
+
+def _rem(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """lax.rem: the remainder that truncates (C fmod), exact. x rem -1 is
+    0 for integers (no INT_MIN trap). Floats (float32 columns) take the
+    remainder in float64: PyTorch's vectorized CPU fmod loses the result
+    when a / b overflows its type (9.3e18 rem 1e-20 gives NaN in
+    float32), a float32 quotient cannot overflow float64, and the exact
+    remainder of two float32 values is a float32 value, so the cast back
+    is exact on the CPU and on the card alike."""
+    if not a.dtype.is_floating_point:
+        return torch.where(b == -1, torch.zeros_like(a), torch.fmod(a, b))
+    return torch.fmod(a.double(), b.double()).to(a.dtype)
+
+
+def _like_to_regex(pattern: str) -> str:
+    out = []
+    for ch in pattern:
+        if ch == "%":
+            out.append(".*")
+        elif ch == "_":
+            out.append(".")
+        else:
+            out.append(re.escape(ch))
+    return "".join(out)
+
+
+def _like_table(dictionary: np.ndarray, pattern: str, device):
+    rx = re.compile(_like_to_regex(pattern), re.S)
+    return torch.from_numpy(np.array([bool(rx.fullmatch(s))
+                                      for s in dictionary],
+                                     dtype=np.bool_)).to(device)
 
 
 def _cmp_table(dictionary: np.ndarray, op: str, literal: str, device):
@@ -368,8 +756,12 @@ def _and_validity(validity, extra):
 
 
 def _as_float(values: torch.Tensor, ty: ColType) -> torch.Tensor:
+    """An operand of float arithmetic or comparison, in float32;
+    subnormal float lanes read as zero (_ftz)."""
     if ty.kind is Kind.DECIMAL:
         return _decimal_to_float(values, ty.scale)
+    if ty.kind is Kind.FLOAT:
+        return _ftz(values.to(torch.float32))
     return values.to(torch.float32)
 
 
@@ -388,7 +780,25 @@ def _numeric_align(lv, lt: ColType, rv, rt: ColType):
     return lv, rv
 
 
-def filter_mask(expr: Expr, batch: Batch, schema: Schema) -> torch.Tensor:
+def _civil_from_days(z: torch.Tensor):
+    """days-since-epoch -> (year, month, day), int64; Howard Hinnant's
+    algorithm, with floor division throughout (dates before 1970 too)."""
+    z = z + 719468
+    era = _floordiv(torch.where(z >= 0, z, z - 146096), 146097)
+    doe = z - era * 146097
+    yoe = _floordiv(doe - _floordiv(doe, 1460) + _floordiv(doe, 36524)
+                    - _floordiv(doe, 146096), 365)
+    y = yoe + era * 400
+    doy = doe - (365 * yoe + _floordiv(yoe, 4) - _floordiv(yoe, 100))
+    mp = _floordiv(5 * doy + 2, 153)
+    d = doy - _floordiv(153 * mp + 2, 5) + 1
+    m = torch.where(mp < 10, mp + 3, mp - 9)
+    y = torch.where(m <= 2, y + 1, y)
+    return y, m, d
+
+
+def filter_mask(expr: Expr, batch: Batch, schema: Schema,
+                tables: Tables) -> torch.Tensor:
     """Predicate -> boolean keep-mask (TRUE only; NULL/FALSE drop)."""
-    c = eval_expr(expr, batch, schema)
+    c = eval_expr(expr, batch, schema, tables)
     return c.values & c.valid_mask()

@@ -1,12 +1,17 @@
 """Logical query plans and the plan -> operator-tree builder.
 
 Counterpart of cockroach_tpu/sql/plan.py, for the plan nodes on the paths
-of TPC-H Q1, Q3, Q6 and Q18: Scan, Filter, Project, Join, Aggregate,
-OrderBy and Limit. `normalize` holds the pure rewrites these queries pass
-through (predicate pushdown, through projections and joins); the stats
-passes (insert_shrinks, use_indexes, decorrelate) are not ported yet and
-change neither these queries' results nor their row order. `build`
-assembles the port's exec/ operators.
+of TPC-H Q1, Q3, Q6, Q9, Q12, Q14 and Q18: Scan, Filter, Shrink, Project,
+Join, Aggregate, OrderBy and Limit. `normalize` runs the JAX package's
+passes in its order: decorrelate, push_filters, use_indexes,
+insert_shrinks. Two of them are no-ops on these plans and are not ported:
+`decorrelate` rewrites only Apply nodes (correlated subqueries), which
+these plans do not hold, and `use_indexes` changes nothing for a catalog
+without secondary indexes, which the TPC-H catalog is (ROADMAP.md queue
+1, item 5). `insert_shrinks` reads the catalog's sampled statistics
+(sql/stats.py) through the cardinality model `estimate_cardinality`, so
+the port builds the JAX package's operator tree, ShrinkOps and their
+start capacities included. `build` assembles the port's exec/ operators.
 
 Tables come from a `Catalog`: anything resolving a name to (schema,
 chunk stream).
@@ -14,17 +19,21 @@ chunk stream).
 
 from __future__ import annotations
 
+import itertools
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
-from cockroach_tpu_torch.coldata.batch import Schema
+from cockroach_tpu_torch.coldata.batch import Kind, Schema
 from cockroach_tpu_torch.exec.operators import (
-    HashAggOp, JoinOp, LimitOp, MapOp, Operator, OrderedAggOp, ScanOp, SortOp,
-    TopKOp,
+    HashAggOp, JoinOp, LimitOp, MapOp, Operator, OrderedAggOp, ScanOp,
+    ShrinkOp, SortOp, TopKOp,
 )
 from cockroach_tpu_torch.ops.agg import AggSpec
-from cockroach_tpu_torch.ops.expr import BoolOp, Col, Expr
+from cockroach_tpu_torch.ops.expr import BoolOp, Col, Expr, StrFunc
 from cockroach_tpu_torch.ops.sort import SortKey
+from cockroach_tpu_torch.sql.stats import (
+    TableStats, conjunct_selectivity, sample_stats,
+)
 
 
 # ---------------------------------------------------------------- catalog --
@@ -47,6 +56,11 @@ class Catalog:
         """Primary-key columns."""
         return None
 
+    def table_stats(self, name: str) -> Optional[TableStats]:
+        """Sampled statistics (sql/stats.py) for the cardinality model,
+        or None."""
+        return None
+
 
 _TPCH_PKS = {
     "part": ("p_partkey",), "supplier": ("s_suppkey",),
@@ -60,6 +74,18 @@ _TPCH_PKS = {
 class TPCHCatalog(Catalog):
     def __init__(self, gen):
         self.gen = gen
+        self._stats_cache: Dict[str, TableStats] = {}
+
+    def table_stats(self, name: str) -> TableStats:
+        """A bounded sample: the first 4 chunks of 2^14 rows (drawing the
+        whole table would generate it at plan time), with the exact row
+        count from the generator. The bounds are the prefix's."""
+        if name not in self._stats_cache:
+            st = sample_stats(itertools.islice(self.gen.chunks(name, 1 << 14),
+                                               4))
+            st.row_count = self.gen.num_rows(name)
+            self._stats_cache[name] = st
+        return self._stats_cache[name]
 
     def table_schema(self, name: str) -> Schema:
         return self.gen.schema(name)
@@ -98,6 +124,19 @@ class Scan(Plan):
 class Filter(Plan):
     input: Plan
     predicate: Expr
+
+    def inputs(self):
+        return (self.input,)
+
+
+@dataclass(frozen=True)
+class Shrink(Plan):
+    """Capacity compaction (exec ShrinkOp) above an operator whose live
+    output is expected to be a small fraction of its capacity (HAVING
+    filters; selective joins)."""
+
+    input: Plan
+    start_capacity: int = 1 << 12
 
     def inputs(self):
         return (self.input,)
@@ -173,7 +212,7 @@ def _plan_columns(p: Plan, catalog: Catalog) -> List[str]:
         return list(p.columns) if p.columns else schema.names()
     if isinstance(p, Project):
         return [n for n, _ in p.outputs]
-    if isinstance(p, (Filter, OrderBy, Limit)):
+    if isinstance(p, (Filter, OrderBy, Limit, Shrink)):
         return _plan_columns(p.input, catalog)
     if isinstance(p, Join):
         if p.how in ("semi", "anti"):
@@ -221,6 +260,15 @@ def push_filters(p: Plan, catalog: Catalog) -> Plan:
     kids = tuple(push_filters(k, catalog) for k in p.inputs())
     if not kids:
         return p
+    return _rebuild(p, kids)
+
+
+def _rebuild(p: Plan, kids) -> Plan:
+    """`p` over new children."""
+    if isinstance(p, Filter):
+        return Filter(kids[0], p.predicate)
+    if isinstance(p, Shrink):
+        return Shrink(kids[0], p.start_capacity)
     if isinstance(p, Project):
         return Project(kids[0], p.outputs)
     if isinstance(p, Join):
@@ -274,11 +322,157 @@ def _try_push(conj: Expr, node: Plan, catalog: Catalog) -> Tuple[bool, Plan]:
     return False, node
 
 
+# ------------------------------------------------------ cardinality model --
+
+def _walk_plan(p: Plan):
+    yield p
+    for k in p.inputs():
+        yield from _walk_plan(k)
+
+
+def _subtree_stats(p: Plan, catalog: Catalog, cols: set):
+    """TableStats of the first scanned table covering `cols` (the
+    independence assumption: a conjunct references one table)."""
+    for sub in _walk_plan(p):
+        if isinstance(sub, Scan) and cols <= set(
+                catalog.table_schema(sub.table).names()):
+            return catalog.table_stats(sub.table)
+    return None
+
+
+def _base_rows(p: Plan, catalog: Catalog) -> float:
+    """Unfiltered cardinality of the largest scan under `p` (the PK-side
+    denominator of an FK->PK join's fraction)."""
+    best = 1.0
+    for sub in _walk_plan(p):
+        if isinstance(sub, Scan):
+            st = catalog.table_stats(sub.table)
+            best = max(best, float(st.row_count) if st is not None
+                       else float(catalog.table_rows(sub.table)))
+    return best
+
+
+def estimate_cardinality(p: Plan, catalog: Catalog) -> float:
+    """Output-row estimate from statistics: a selectivity per conjunct, an
+    FK->PK fraction per join."""
+    if isinstance(p, Scan):
+        st = catalog.table_stats(p.table)
+        return (float(st.row_count) if st is not None
+                else float(catalog.table_rows(p.table)))
+    if isinstance(p, Filter):
+        base = estimate_cardinality(p.input, catalog)
+        sel = 1.0
+        for c in _split_conjuncts(p.predicate):
+            st = _subtree_stats(p.input, catalog, _expr_columns(c, set()))
+            sel *= conjunct_selectivity(c, st)
+        return max(base * sel, 1.0)
+    if isinstance(p, Join):
+        le = estimate_cardinality(p.left, catalog)
+        re_ = estimate_cardinality(p.right, catalog)
+        rbase = _base_rows(p.right, catalog)
+        frac = min(re_ / max(rbase, 1.0), 1.0)
+        if p.how == "semi":
+            return max(le * frac, 1.0)
+        if p.how == "anti":
+            return max(le * (1.0 - frac), 1.0)
+        if p.how in ("inner", "left"):
+            # FK->PK (unique build): each probe row matches <= 1 build row
+            return max(le * (frac if p.how == "inner" else 1.0), 1.0)
+        return max(le + re_, 1.0)
+    if isinstance(p, Aggregate):
+        ce = estimate_cardinality(p.input, catalog)
+        return max(ce / 2.0, 1.0) if p.group_by else 1.0
+    if isinstance(p, Limit):
+        return float(min(estimate_cardinality(p.input, catalog), p.n))
+    if p.inputs():
+        return estimate_cardinality(p.inputs()[0], catalog)
+    return 1.0
+
+
+# ----------------------------------------------------------- shrinks --
+
+def insert_shrinks(p: Plan, catalog: Optional[Catalog] = None) -> Plan:
+    """Place Shrink nodes: (1) above every HAVING-shaped filter (a filter
+    over an aggregate); (2) above inner/semi joins whose build side is
+    already small and whose probe side is not; (3) from statistics, above
+    a selective join whose estimated output is at most a third of its
+    probe input's, with capacity pow2(1.5 x the estimate), at least
+    2^12 (Q9's 5% semi join against green parts). Smallness propagates
+    through row-preserving nodes. A Shrink is never placed directly under
+    an Aggregate. Its overflow restarts the flow with 16x the capacity,
+    so a low estimate costs a restart, never a wrong answer."""
+    node, _small = _shrink_rec(p, catalog, under_agg=False)
+    return node
+
+
+def _pow2_at_least(n: int) -> int:
+    c = 1
+    while c < n:
+        c *= 2
+    return c
+
+
+def _shrink_rec(p: Plan, catalog: Optional[Catalog], under_agg: bool):
+    if isinstance(p, Filter) and isinstance(p.input, Aggregate):
+        inner, _ = _shrink_rec(p.input, catalog, False)
+        return Shrink(Filter(inner, p.predicate)), True
+    if not p.inputs():
+        return p, False
+    kid_under = isinstance(p, Aggregate)
+    pairs = [_shrink_rec(k, catalog, kid_under) for k in p.inputs()]
+    kids = tuple(n for n, _ in pairs)
+    smalls = [sm for _, sm in pairs]
+    out = _rebuild(p, kids)
+    if isinstance(p, Shrink):
+        return out, True
+    if isinstance(p, Join):
+        if (p.how in ("inner", "semi") and smalls[1] and not smalls[0]
+                and not under_agg):
+            return Shrink(out, start_capacity=1 << 14), True
+        if (catalog is not None and not under_agg
+                and p.how in ("inner", "semi", "anti")
+                and not smalls[0]):
+            est = estimate_cardinality(out, catalog)
+            probe_est = estimate_cardinality(p.left, catalog)
+            if est * 3.0 <= probe_est and est >= 1.0:
+                cap = max(_pow2_at_least(int(est * 1.5) + 1), 1 << 12)
+                return Shrink(out, start_capacity=cap), True
+        return out, (smalls[0] and p.how in ("inner", "left", "semi",
+                                             "anti"))
+    if isinstance(p, (Filter, Project, Limit, OrderBy, Aggregate)):
+        # row-preserving (or row-reducing) single-child nodes keep their
+        # child's smallness
+        return out, smalls[0]
+    return out, False
+
+
 def normalize(p: Plan, catalog: Catalog) -> Plan:
-    return push_filters(p, catalog)
+    """The JAX package's normalize on plans without Apply nodes, over a
+    catalog without secondary indexes: insert_shrinks(push_filters(p))."""
+    return insert_shrinks(push_filters(p, catalog), catalog)
 
 
 # ------------------------------------------------------------------ build --
+
+def _computes_string(e: Expr, schema: Schema) -> bool:
+    """Whether a projection output mints strings (a StrFunc anywhere, or a
+    non-column output of STRING type such as a CASE over strings): the
+    JAX package evaluates those in its row engine (RowMapOp)."""
+    return not isinstance(e, Col) and (
+        _has_strfunc(e) or e.type(schema).kind is Kind.STRING)
+
+
+def _has_strfunc(e: Expr) -> bool:
+    if isinstance(e, StrFunc):
+        return True
+    for child in e.__dict__.values():
+        items = child if isinstance(child, tuple) else (child,)
+        for c in items:
+            parts = c if isinstance(c, tuple) else (c,)  # Case's whens
+            if any(isinstance(x, Expr) and _has_strfunc(x) for x in parts):
+                return True
+    return False
+
 
 def _ordering_of(p: Plan) -> Tuple[str, ...]:
     """Column ordering the node's output is known to satisfy (prefix):
@@ -324,8 +518,17 @@ def build(p: Plan, catalog: Catalog, capacity: int = 1 << 17,
             return ScanOp(schema, chunks, capacity, table=node.table)
         if isinstance(node, Filter):
             return MapOp(rec(node.input), [("filter", node.predicate)])
+        if isinstance(node, Shrink):
+            return ShrinkOp(rec(node.input), capacity=node.start_capacity)
         if isinstance(node, Project):
-            return MapOp(rec(node.input), [("project", list(node.outputs))])
+            child = rec(node.input)
+            if any(_computes_string(e, child.schema)
+                   for _, e in node.outputs):
+                raise NotImplementedError(
+                    "a projection that computes strings runs through the "
+                    "row engine, which is not ported yet (ROADMAP.md queue "
+                    "1, item 7)")
+            return MapOp(child, [("project", list(node.outputs))])
         if isinstance(node, Join):
             return JoinOp(rec(node.left), rec(node.right),
                           list(node.left_on), list(node.right_on),

@@ -26,11 +26,11 @@ def port_schema(js):
     return schema_from_spec(spec, js.dicts)
 
 
-def port_batch(jb):
+def port_batch(jb, device="cpu"):
     cols = {n: (np.asarray(c.values),
                 None if c.validity is None else np.asarray(c.validity))
             for n, c in jb.columns.items()}
-    return batch_from_arrays(cols, np.asarray(jb.sel), int(jb.length), "cpu")
+    return batch_from_arrays(cols, np.asarray(jb.sel), int(jb.length), device)
 
 
 def to_port_expr(e):
@@ -55,12 +55,12 @@ def to_port_expr(e):
 
 
 def assert_same_column(jc, tc, what):
-    np.testing.assert_array_equal(tc.values.numpy(), np.asarray(jc.values),
+    np.testing.assert_array_equal(tc.values.cpu().numpy(), np.asarray(jc.values),
                                   err_msg=what)
     assert tc.values.dtype == torch.from_numpy(
         np.zeros(0, np.asarray(jc.values).dtype)).dtype, what
     jv = None if jc.validity is None else np.asarray(jc.validity)
-    tv = None if tc.validity is None else tc.validity.numpy()
+    tv = None if tc.validity is None else tc.validity.cpu().numpy()
     assert (jv is None) == (tv is None), what
     if jv is not None:
         np.testing.assert_array_equal(tv, jv, err_msg=what)
@@ -103,7 +103,7 @@ def test_q1_expressions_match_jax(name):
     jb, js = _lineitem_batch()
     e = _q1_exprs()[name]
     want = jax.jit(lambda b: jx.eval_expr(e, b, js))(jb)
-    got = tx.eval_expr(to_port_expr(e), port_batch(jb), port_schema(js))
+    got = tx.eval_expr(to_port_expr(e), port_batch(jb), port_schema(js), {})
     assert_same_column(want, got, name)
 
 
@@ -111,7 +111,8 @@ def test_q1_filter_mask_matches_jax():
     jb, js = _lineitem_batch()
     e = _q1_exprs()["shipdate_le"]
     want = jax.jit(lambda b: jx.filter_mask(e, b, js))(jb)
-    got = tx.filter_mask(to_port_expr(e), port_batch(jb), port_schema(js))
+    got = tx.filter_mask(to_port_expr(e), port_batch(jb), port_schema(js),
+                         {})
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
@@ -178,7 +179,7 @@ def test_three_valued_logic_matches_jax(name):
     jb, js = _null_batch()
     e = _null_exprs()[name]
     want = jax.jit(lambda b: jx.eval_expr(e, b, js))(jb)
-    got = tx.eval_expr(to_port_expr(e), port_batch(jb), port_schema(js))
+    got = tx.eval_expr(to_port_expr(e), port_batch(jb), port_schema(js), {})
     assert_same_column(want, got, name)
 
 
@@ -188,4 +189,63 @@ def test_unported_node_names_its_roadmap_item():
 
     jb, js = _null_batch()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tx.eval_expr(Other(), port_batch(jb), port_schema(js))
+        tx.eval_expr(Other(), port_batch(jb), port_schema(js), {})
+
+
+def _subnormal_batch():
+    """FLOAT columns holding subnormals (+-1e-45), zeros and NaN, beside
+    normal values."""
+    F = jbatch.Field
+    js = jbatch.Schema([F("f", jbatch.FLOAT), F("g", jbatch.FLOAT)])
+    f = np.array([1e-45, -1e-45, 0.0, np.nan, 1e-40, -0.0, 1.5, -2.0,
+                  3e-38, 1e-20], np.float32)
+    g = np.array([0.0, 1e-45, -1e-45, 1.0, 0.0, 1e-45, 1e-20, np.nan,
+                  3e-38, 1e-20], np.float32)
+    jb = jbatch.Batch.from_columns({
+        "f": jbatch.Column(jnp.asarray(f)),
+        "g": jbatch.Column(jnp.asarray(g), jnp.asarray(np.arange(10) != 3))})
+    return jb, js
+
+
+def _subnormal_exprs():
+    f, g = jx.Col("f"), jx.Col("g")
+    zero = jx.Lit(0.0)
+    exprs = {f"cmp_{name}_lit": jx.Cmp(op, f, zero)
+             for name, op in (("eq", "=="), ("ne", "!="), ("lt", "<"),
+                              ("le", "<="), ("gt", ">"), ("ge", ">="))}
+    exprs.update({f"cmp_{name}_col": jx.Cmp(op, f, g)
+                  for name, op in (("eq", "=="), ("lt", "<"), ("ge", ">="))})
+    exprs.update({f"binop_{name}": jx.BinOp(op, f, g)
+                  for name, op in (("add", "+"), ("sub", "-"), ("mul", "*"),
+                                   ("div", "/"))})
+    # a product whose result is subnormal: flushed to zero
+    exprs["binop_mul_lit"] = jx.BinOp("*", f, jx.Lit(1e-20))
+    return exprs
+
+
+@pytest.mark.parametrize("name", sorted(_subnormal_exprs()))
+def test_float_subnormals_match_jax(name):
+    """The JAX package's compiled comparisons and arithmetic read a
+    subnormal float32 as zero and flush subnormal results: 1e-45 == 0.0
+    holds there, and a subnormal divisor gives NULL, as zero does."""
+    jb, js = _subnormal_batch()
+    e = _subnormal_exprs()[name]
+    want = jax.jit(lambda b: jx.eval_expr(e, b, js))(jb)
+    got = tx.eval_expr(to_port_expr(e), port_batch(jb), port_schema(js), {})
+    assert_same_column(want, got, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(_subnormal_exprs()))
+def test_float_subnormals_match_jax_on_card(name):
+    """The same cases on a CUDA batch: the card's arithmetic keeps
+    subnormals too, so the explicit flushing must hold there as well."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    jb, js = _subnormal_batch()
+    e = _subnormal_exprs()[name]
+    want = jax.jit(lambda b: jx.eval_expr(e, b, js))(jb)
+    got = tx.eval_expr(to_port_expr(e), port_batch(jb, "cuda"),
+                       port_schema(js), {})
+    assert got.values.is_cuda
+    assert_same_column(want, got, name)

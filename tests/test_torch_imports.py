@@ -14,13 +14,13 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-# the modules of the sort-based GROUP BY, the joins and top-K: imported
-# by name, so a module that goes missing fails here rather than being
+# the modules of the sort-based GROUP BY, the joins, top-K, the
+# expressions and the planner's statistics: imported by name, so a module that goes missing fails here rather than being
 # skipped by the package walk
 SLICE_MODULES = ["ops.hash", "ops.prefix", "ops.search", "ops.rowmat",
                  "ops.hashtable", "ops.join", "ops.sortjoin", "ops.agg",
-                 "ops.sort", "exec.operators", "sql.plan",
-                 "workload.tpch_queries"]
+                 "ops.sort", "ops.expr", "exec.operators", "sql.plan",
+                 "sql.stats", "workload.tpch_queries"]
 
 
 def test_port_imports_no_jax_pyarrow_or_jax_package():

@@ -21,7 +21,7 @@ from cockroach_tpu.workload import tpch_queries as jq
 from cockroach_tpu_torch.exec import collect as tcollect
 from cockroach_tpu_torch.exec import stats
 from cockroach_tpu_torch.exec.operators import (
-    HashAggOp, JoinOp, MapOp, ScanOp, TopKOp, walk_operators,
+    HashAggOp, JoinOp, MapOp, ScanOp, ShrinkOp, TopKOp, walk_operators,
 )
 from cockroach_tpu_torch.workload import tpch as ttpch
 from cockroach_tpu_torch.workload import tpch_queries as tq
@@ -144,10 +144,15 @@ def test_q18_operator_tree():
     flow = tq.q18(ttpch.TPCH(sf=SF), Q18_THRESHOLD, CAPACITY)
     kinds = [type(op).__name__ for op in walk_operators(flow)]
     # Q18's two lineitem scans are one ScanOp (value-equal plan memo), so
-    # the deduplicated walk meets it once
+    # the deduplicated walk meets it once; the JAX package's plan puts a
+    # ShrinkOp above the semi join and one above the HAVING filter
     assert kinds == ["TopKOp", "HashAggOp", "JoinOp", "ScanOp", "JoinOp",
-                     "JoinOp", "ScanOp", "MapOp", "MapOp", "HashAggOp",
-                     "ScanOp"]
+                     "ShrinkOp", "JoinOp", "ScanOp", "MapOp", "ShrinkOp",
+                     "MapOp", "HashAggOp", "ScanOp"]
+    shrinks = [op for op in walk_operators(flow) if isinstance(op, ShrinkOp)]
+    assert [s.capacity for s in shrinks] == [1 << 14, 1 << 12]
+    assert shrinks[0].child.how == "semi"
+    assert isinstance(shrinks[1].child, MapOp)
     lineitem = flow.child.child.probe
     assert lineitem.table == "lineitem"
     assert [op for op in walk_operators(flow)
@@ -169,8 +174,13 @@ def test_q3_operator_tree():
     assert isinstance(flow, TopKOp) and flow.k == 10
     kinds = [type(op).__name__ for op in walk_operators(flow)]
     assert kinds == ["TopKOp", "HashAggOp", "JoinOp", "MapOp", "MapOp",
-                     "ScanOp", "JoinOp", "MapOp", "ScanOp", "MapOp",
-                     "MapOp", "ScanOp"]
+                     "ScanOp", "ShrinkOp", "JoinOp", "MapOp", "ScanOp",
+                     "MapOp", "MapOp", "ScanOp"]
+    # the JAX package's plan compacts the orders side of the big join
+    # (start capacity 2^12 at SF 0.01, 2^18 at SF 1)
+    shrink = flow.child.child.build
+    assert isinstance(shrink, ShrinkOp) and shrink.capacity == 1 << 12
+    assert shrink.child.how == "semi"
     agg = flow.child
     assert agg.group_by == ["l_orderkey", "o_orderdate", "o_shippriority"]
     assert agg.dense_sizes is None
