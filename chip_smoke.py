@@ -45,9 +45,24 @@ Phases, each printed on lines of its own:
      The device time of one call of Q9's ShrinkOp over the semi join's
      6 x 2^20 lanes, Q9's composite-key join probe against partsupp and
      Q12's dense GROUP BY of one batch; dense_sums at Q12's shape against
-     its plain version. Then one JSON line per query of phases 6 and 7,
-     the JSON line of kernels (dense_sums' launches in the Q1 run, and
-     by path: Q1 and Q12), the card line and, last, the result line.
+     its plain version;
+  8. TPC-H Q4, Q17, Q16, Q2, Q15, Q5, Q10 and Q19 at SF 1 in the same
+     way, each run equal to its oracle (columnar where the row loop
+     walks lineitem). Their plans run the decorrelated subqueries
+     (EXISTS as a semi join, Q2's correlated MIN and Q15's uncorrelated
+     MAX as LEFT joins against an aggregate), DISTINCT (Q16) and the
+     anti join. The cold runs restart as COLD_RESTARTS says (Q2 once,
+     Q16 twice: ShrinkOps whose start capacities are below SF 1's rows;
+     Q4 once: its semi join's build keys repeat), the warm runs never;
+     Q4 launches dense_sums once per orders chunk and Q5 once (the one
+     batch of its ShrinkOp). The device time of one call of Q2's and
+     Q15's LEFT join probes, Q17's per-part GROUP BY partial and fold
+     step and Q16's DistinctOp; dense_sums at Q4's and Q5's shapes
+     against its plain version, bit for bit, and timed beside its bound
+     as in phase 5. Then one JSON line per query of phases 6, 7 and 8,
+     the JSON line of kernels (dense_sums' launches in the Q1 run, by
+     path: Q1, Q12, Q4 and Q5, and its times at Q1's, Q4's and Q5's
+     shapes), the card line and, last, the result line.
 
 Phase 2 fails if ptxas reports spills in dense_sums' Q1 instantiation,
 or if its SASS (cuobjdump -sass) holds a shared-memory atomic (ATOMS).
@@ -55,8 +70,8 @@ or if its SASS (cuobjdump -sass) holds a shared-memory atomic (ATOMS).
 Any mismatch or exception exits non-zero. With --profile DIR, one more
 run of each query is traced with torch.profiler: the kernel tables go to
 DIR/<query>_profile.txt, the traces to DIR/<query>_trace.json, and
-phases 6 and 7 print each query's device busy time, the join probes'
-cummax total and its ten longest device ops.
+phases 6, 7 and 8 print each query's device busy time, the join probes'
+cummax total and call count, and its ten longest device ops.
 """
 
 import argparse
@@ -290,6 +305,60 @@ def sweep_dense_sums(torch, ck, dev) -> int:
     return max(worst, dense_edge_cases(torch, ck, dev, smem))
 
 
+def sector_bytes(torch, in_range, lane_bytes: int) -> int:
+    """Bytes of the 32-byte sectors that hold a column's in-range lanes
+    (the column starting on a sector): what a reader of only those lanes
+    must fetch."""
+    per = 32 // lane_bytes
+    n = in_range.shape[0]
+    m = torch.zeros(n + (-n) % per, dtype=torch.bool, device=in_range.device)
+    m[:n] = in_range
+    return 32 * int(m.view(-1, per).any(dim=1).sum().item())
+
+
+def measure_dense_sums(torch, ck, packed, values, live, d, flush) -> dict:
+    """dense_sums at one shape: its device ms, its plain version's and
+    the one-call PyTorch yardstick's (index_add_), each the median of 30
+    CUDA-event timings after an L2 flush that leaves dirty lines, the
+    kernel's again after one that leaves clean lines, and its bound: the
+    bytes it must move over PEAK_BYTES_PER_S, or its int64 adds over
+    PEAK_OPS_PER_S where that is longer. The bytes are every code read
+    once, the value columns and live masks read only at lanes whose code
+    is in range (a dead lane's value adds nothing), rounded up to the
+    32-byte sectors those lanes touch, and the D x K sums written once."""
+    n, k_cols, dev = packed.shape[0], len(values), packed.device
+    kernel_ms = event_ms(torch, lambda: ck.dense_sums(packed, values, live, d),
+                         flush=flush)
+    clean_ms = event_ms(torch, lambda: ck.dense_sums(packed, values, live, d),
+                        flush=flush, clean=True)
+    plain_ms = event_ms(
+        torch, lambda: ck.dense_sums_plain(packed, values, live, d),
+        flush=flush)
+    stacked = torch.stack(
+        [torch.ones(n, dtype=torch.int64, device=dev) if v is None else v
+         for v in values], dim=1)
+    in_mask = (packed >= 0) & (packed < d)
+    idx = torch.where(in_mask, packed, d).long()
+    library_ms = event_ms(
+        torch, lambda: torch.zeros((d + 1, k_cols), dtype=torch.int64,
+                                   device=dev).index_add_(0, idx, stacked),
+        flush=flush)
+    n_value_cols = sum(v is not None for v in values)
+    n_live_cols = sum(m is not None for m in live)
+    in_range = int(in_mask.sum().item())
+    nbytes = (4 * n + n_value_cols * sector_bytes(torch, in_mask, 8)
+              + n_live_cols * sector_bytes(torch, in_mask, 1)
+              + 8 * k_cols * d)
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = in_range * k_cols / PEAK_OPS_PER_S * 1e3
+    return {"n": n, "d": d, "k": k_cols, "in_range": in_range,
+            "bytes": nbytes, "ms": kernel_ms,
+            "clean_l2_ms": clean_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
 # ------------------------------------------------------------ phase 4
 
 def check_q1(res, oracle, rf_names, ls_names) -> None:
@@ -323,6 +392,7 @@ def check_q1(res, oracle, rf_names, ls_names) -> None:
 
 PHASE6 = ("q6", "q3", "q18")
 PHASE7 = ("q9", "q12", "q14")
+PHASE8 = ("q4", "q17", "q16", "q2", "q15", "q5", "q10", "q19")
 Q18_THRESHOLD = 300  # the spec's
 # host stage timers printed per query (exec/stats.py)
 STAGES = ("scan.pack", "scan.transfer", "join.build", "agg.fold", "shrink")
@@ -334,19 +404,53 @@ Q_COLUMNS = {
     "q9": ("n_name", "o_year", "sum_profit"),
     "q12": ("l_shipmode", "high_line_count", "low_line_count"),
     "q14": ("promo_revenue", "total_revenue"),
+    "q2": ("s_acctbal", "s_name", "n_name", "p_partkey", "p_mfgr",
+           "ps_supplycost", "s_suppkey"),
+    "q4": ("o_orderpriority", "order_count"),
+    "q5": ("n_name", "revenue"),
+    "q10": ("c_custkey", "c_name", "c_acctbal", "n_name", "revenue"),
+    "q15": ("s_suppkey", "s_name", "total_revenue"),
+    "q16": ("p_brand", "p_type", "p_size", "supplier_cnt"),
+    "q17": ("sum_price",),
+    "q19": ("revenue",),
 }
 # the tables each phase's queries scan, generated before the clock starts
 PHASE_TABLES = {6: ("customer", "orders", "lineitem"),
                 7: ("part", "supplier", "partsupp", "nation", "orders",
-                    "lineitem")}
-# FlowRestarts of the cold run (every warm run must have none): Q18's
-# first aggregate (1.5 M groups) overflows a 2^20 accumulator once; every
-# Shrink start capacity of the JAX plans exceeds its real row count at
-# SF 1
-COLD_RESTARTS = {"q18": 1}
-# the kernels each query's path runs, with the launches one run makes
-PATH_KERNELS = {"q12": {"dense_sums": lambda gen: -(
-    -gen.num_rows("lineitem") // CAPACITY)}}  # once per lineitem chunk
+                    "lineitem"),
+                8: ("region", "nation", "supplier", "part", "partsupp",
+                    "customer", "orders", "lineitem")}
+# FlowRestarts of the cold run (every warm run must have none), from the
+# JAX plans' start capacities against the rows SF 1 gives them:
+# - Q18's first aggregate (1.5 M groups) overflows a 2^20 accumulator;
+# - Q2's ShrinkOp over partsupp x European suppliers starts at 2^14 and
+#   sees about 160,000 rows: one restart, to 2^18;
+# - Q16's ShrinkOp over partsupp x the parts kept starts at 2^12 and sees
+#   about 120,000 rows: two restarts, to 2^16 and then 2^20;
+# - Q4's semi join builds on late lineitems, whose l_orderkey repeats:
+#   the unique-mat build flags it and widens to expand;
+# every other Shrink start capacity exceeds its real row count at SF 1
+COLD_RESTARTS = {"q18": 1, "q2": 1, "q16": 2, "q4": 1}
+
+
+def _chunks(table):
+    """The number of capacity-sized chunks a table's scan yields."""
+    return lambda gen: -(-gen.num_rows(table) // CAPACITY)
+
+
+# the kernels each query's path runs, with the launches one pass of its
+# flow makes: the dense GROUP BY launches dense_sums once per batch that
+# reaches it
+PATH_KERNELS = {
+    # l_shipmode: one batch per lineitem chunk
+    "q12": {"dense_sums": _chunks("lineitem")},
+    # o_orderpriority (D = 6): one batch per orders chunk, through the
+    # semi join
+    "q4": {"dense_sums": _chunks("orders")},
+    # n_name (D = 26): the one 2^22-lane batch of the ShrinkOp above the
+    # lineitem join
+    "q5": {"dense_sums": lambda gen: 1},
+}
 # the cummax of the join probe (ops/sortjoin.py _run_build_broadcast), as
 # the profiler names its kernel
 CUMMAX_KERNEL = "scan_innermost_dim_with_indices"
@@ -399,7 +503,30 @@ def query_oracle(name: str, gen) -> list:
         return sorted(((m, h, lo) for m, (h, lo)
                        in tq.q12_oracle_columnar(gen).items()),
                       key=lambda r: modes[r[0]])
-    return [tq.q14_oracle_columnar(gen)]
+    if name == "q14":
+        return [tq.q14_oracle_columnar(gen)]
+    if name == "q2":
+        return tq.q2_oracle(gen)
+    if name == "q4":
+        return sorted(tq.q4_oracle(gen).items())
+    if name == "q5":
+        # ORDER BY revenue DESC, n_name (in name order)
+        rank = tq.name_rank(gen, "nation", "n_name")
+        return sorted(tq.q5_oracle_columnar(gen).items(),
+                      key=lambda r: (-r[1], rank[r[0]]))
+    if name == "q10":
+        return tq.q10_oracle_columnar(gen)
+    if name == "q15":
+        return tq.q15_oracle_columnar(gen)
+    if name == "q16":
+        brand = tq.name_rank(gen, "part", "p_brand")
+        ptype = tq.name_rank(gen, "part", "p_type")
+        return sorted(((b, t, z, n) for (b, t, z), n
+                       in tq.q16_oracle(gen).items()),
+                      key=lambda r: (-r[3], brand[r[0]], ptype[r[1]], r[2]))
+    if name == "q17":
+        return [(tq.q17_oracle_columnar(gen),)]
+    return [(tq.q19_oracle(gen),)]
 
 
 def query_flows(gen) -> dict:
@@ -412,7 +539,9 @@ def query_flows(gen) -> dict:
             "q18": lambda: tq.q18(gen, Q18_THRESHOLD, CAPACITY),
             "q9": lambda: tq.q9(gen, CAPACITY),
             "q12": lambda: tq.q12(gen, CAPACITY),
-            "q14": lambda: tq.q14(gen, CAPACITY)}
+            "q14": lambda: tq.q14(gen, CAPACITY),
+            **{n: (lambda n=n: getattr(tq, n)(gen, CAPACITY))
+               for n in PHASE8}}
 
 
 def timed_collect(torch, stats, collect, flow, count_syncs: bool = False):
@@ -540,7 +669,8 @@ def layer_times_phase7(torch, ck, flows, dev):
 
 def trace_query(torch, collect, flow, path_stem: str):
     """One traced run: (device busy ms, wall ms, the ten longest device
-    ops as (name, total ms, count), the cummax kernels' total ms)."""
+    ops as (name, total ms, count), the cummax kernels' total ms and
+    their launches)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -564,9 +694,9 @@ def trace_query(torch, collect, flow, path_stem: str):
             tot, cnt = per_op.get(e["name"], (0.0, 0))
             per_op[e["name"]] = (tot + e["dur"] / 1e3, cnt + 1)
     top = sorted(per_op.items(), key=lambda kv: -kv[1][0])[:10]
-    cummax_ms = sum(t for n, (t, _c) in per_op.items()
-                    if CUMMAX_KERNEL in n)
-    return busy_ms, wall_ms, [(n, t, c) for n, (t, c) in top], cummax_ms
+    cummax = [(t, c) for n, (t, c) in per_op.items() if CUMMAX_KERNEL in n]
+    return (busy_ms, wall_ms, [(n, t, c) for n, (t, c) in top],
+            sum(t for t, _c in cummax), sum(c for _t, c in cummax))
 
 
 def run_query_phase(torch, gen, phase: int, names):
@@ -645,14 +775,16 @@ def profile_queries(torch, records, flows, profile_dir) -> None:
     from cockroach_tpu_torch.exec.operators import collect
 
     for name, flow in flows.items():
-        busy, wall, top, cummax = trace_query(
+        busy, wall, top, cummax, cummax_calls = trace_query(
             torch, collect, flow, os.path.join(profile_dir, name))
         records[name]["device_busy_ms"] = busy
         records[name]["traced_wall_ms"] = wall
         records[name]["cummax_ms"] = cummax
+        records[name]["cummax_calls"] = cummax_calls
         print(f"  traced {name} run: device busy {busy:.3f} ms of "
-              f"{wall:.3f} ms wall; cummax {cummax:.3f} ms; ten longest "
-              f"device ops (total ms, count):", flush=True)
+              f"{wall:.3f} ms wall; cummax {cummax:.3f} ms in "
+              f"{cummax_calls} calls; ten longest device ops (total ms, "
+              f"count):", flush=True)
         for op, ms, cnt in top:
             print(f"    {ms:9.3f} {cnt:5d}  {op[:110]}")
 
@@ -685,6 +817,91 @@ def run_phase7(torch, ck, gen, dev, profile_dir):
     if profile_dir:
         profile_queries(torch, records, flows, profile_dir)
     return records, worst
+
+
+def layer_times_phase8(torch, ck, flows, dev, flush):
+    """Device ms (CUDA events, median of 10) of one call of each new
+    mechanism's layer at the shapes SF 1 gives it: Q2's decorrelated LEFT
+    join (its probe against the per-part MIN), Q15's constant-key LEFT
+    join (one build row, every probe lane in one run), one fold step of
+    Q17's per-part GROUP BY of lineitem (200,000 groups), and Q16's
+    DistinctOp (the keys-only GROUP BY of its one batch). Then K1 at Q4's
+    and Q5's shapes against its plain version, bit for bit, and timed.
+    -> (times, K1's largest difference, {query: K1 at its shape})."""
+    from itertools import islice
+
+    from cockroach_tpu_torch.exec.operators import (
+        DistinctOp, HashAggOp, JoinOp, _fold_step, _grow_to, _pow2_at_least,
+        walk_operators,
+    )
+    from cockroach_tpu_torch.ops import agg as agg_ops
+    from cockroach_tpu_torch.ops.join import (
+        hash_join_prepared, prepare_build,
+    )
+
+    out = {}
+    for name in ("q2", "q15"):
+        join = [op for op in walk_operators(flows[name])
+                if isinstance(op, JoinOp) and op.how == "left"][0]
+        build = join._materialize_build(dev)
+        bt = prepare_build(build, join.build_on, mode="unique-mat")
+        probe = next(iter(join.probe.batches(dev)))
+        out[f"{name}.join.left"] = event_ms(
+            torch, lambda: hash_join_prepared(probe, bt, join.probe_on,
+                                              join.build_on, how="left"),
+            reps=10)
+    agg = [op for op in walk_operators(flows["q17"])
+           if isinstance(op, HashAggOp) and op.group_by == ["l_partkey"]][0]
+    b1, b2 = islice(agg.child.batches(dev), 2)
+    p1, _ = agg._partial(b1)
+    p2, _ = agg._partial(b2)
+    acc_cap = _pow2_at_least(p1.capacity * agg.expansion)
+    acc = _grow_to(p1, acc_cap)
+    out["q17.agg.partial"] = event_ms(torch, lambda: agg._partial(b2),
+                                      reps=10)
+    out["q17.agg.fold_step"] = event_ms(
+        torch, lambda: _fold_step(acc, p2, acc_cap, agg.group_by,
+                                  agg._merge_aggs, seed=agg.seed), reps=10)
+    dist = [op for op in walk_operators(flows["q16"])
+            if isinstance(op, DistinctOp)][0]
+    b = next(iter(dist._agg.child.batches(dev)))
+    out["q16.distinct"] = event_ms(torch, lambda: dist._agg._partial(b),
+                                   reps=10)
+    worst, shapes = 0, {}
+    smem = ck.smem_per_block(dev)
+    for name in ("q4", "q5"):
+        agg = [op for op in walk_operators(flows[name])
+               if isinstance(op, HashAggOp) and op.dense_sizes][0]
+        b = next(iter(agg.child.batches(dev)))
+        packed, values, live, d = agg_ops.dense_kernel_inputs(
+            b, agg.group_by, agg.internal, agg.dense_sizes)
+        worst = max(worst, check_dense_case(
+            torch, ck, f"{name.upper()}'s first batch", packed, values,
+            live, d, smem))
+        shapes[name] = measure_dense_sums(torch, ck, packed, values, live, d,
+                                          flush)
+        m = shapes[name]
+        print(f"  dense_sums at {name.upper()}'s shape N={m['n']} "
+              f"D={m['d']} K={m['k']} ({m['in_range']} lanes in range): "
+              f"kernel_ms {m['ms']:.4f} (after a flush that leaves L2 "
+              f"clean {m['clean_l2_ms']:.4f}), bound_ms "
+              f"{m['bound_ms']:.4f} ({m['bytes']} bytes, {m['bound_by']}; "
+              f"kernel at {m['bound_ms'] / m['ms']:.1%} of it), plain_ms "
+              f"{m['plain_ms']:.4f}, library_ms {m['library_ms']:.4f} "
+              f"(index_add_)", flush=True)
+    return out, worst, shapes
+
+
+def run_phase8(torch, ck, gen, dev, flush, profile_dir):
+    """Q4, Q17, Q16, Q2, Q15, Q5, Q10 and Q19 at SF 1 through the port on
+    CUDA. -> ({name: JSON record}, K1's largest difference from its
+    plain version at Q4's and Q5's shapes, {query: K1 at its shape})."""
+    records, flows = run_query_phase(torch, gen, 8, PHASE8)
+    layers, worst, shapes = layer_times_phase8(torch, ck, flows, dev, flush)
+    add_layers(records, layers)
+    if profile_dir:
+        profile_queries(torch, records, flows, profile_dir)
+    return records, worst, shapes
 
 
 def main() -> int:
@@ -804,31 +1021,11 @@ def main() -> int:
                                         packed, values, live, d,
                                         ck.smem_per_block(dev)))
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
-    kernel_ms = event_ms(torch, lambda: ck.dense_sums(packed, values, live, d),
-                         flush=flush)
-    kernel_clean_ms = event_ms(
-        torch, lambda: ck.dense_sums(packed, values, live, d), flush=flush,
-        clean=True)
-    plain_ms = event_ms(
-        torch, lambda: ck.dense_sums_plain(packed, values, live, d),
-        flush=flush)
-    stacked = torch.stack(
-        [torch.ones(n, dtype=torch.int64, device=dev) if v is None else v
-         for v in values], dim=1)
-    idx = torch.where((packed >= 0) & (packed < d), packed, d).long()
-    library_ms = event_ms(
-        torch, lambda: torch.zeros((d + 1, len(values)), dtype=torch.int64,
-                                   device=dev).index_add_(0, idx, stacked),
-        flush=flush)
-    k_cols = len(values)
-    n_value_cols = sum(v is not None for v in values)
-    n_live_cols = sum(m is not None for m in live)
-    nbytes = n * (4 + 8 * n_value_cols + n_live_cols) + 8 * k_cols * d
-    in_range = int(((packed >= 0) & (packed < d)).sum().item())
-    ops = in_range * k_cols
-    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    ops_ms = ops / PEAK_OPS_PER_S * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
+    q1_shape = measure_dense_sums(torch, ck, packed, values, live, d, flush)
+    kernel_ms, plain_ms = q1_shape["ms"], q1_shape["plain_ms"]
+    library_ms, bound_ms = q1_shape["library_ms"], q1_shape["bound_ms"]
+    nbytes, k_cols = q1_shape["bytes"], q1_shape["k"]
+    kernel_clean_ms = q1_shape["clean_l2_ms"]
     # a yardstick for reading that many bytes: one torch.sum over them
     same_bytes = torch.ones(nbytes // 8, dtype=torch.int64, device=dev)
     read_ms = event_ms(torch, lambda: same_bytes.sum(), flush=flush)
@@ -888,6 +1085,11 @@ def main() -> int:
     records7, worst7 = run_phase7(torch, ck, gen, dev, args.profile)
     query_records.update(records7)
     worst = max(worst, worst7)
+    # ---- 8. Q4, Q17, Q16, Q2, Q15, Q5, Q10 and Q19 at SF 1
+    records8, worst8, k1_shapes = run_phase8(torch, ck, gen, dev, flush,
+                                             args.profile)
+    query_records.update(records8)
+    worst = max(worst, worst8)
 
     kernels = [{
         "name": "dense_sums",
@@ -897,18 +1099,20 @@ def main() -> int:
         "launches": launches["dense_sums"],
         "launches_by_path": {
             "q1": launches["dense_sums"],
-            "q12": query_records["q12"]["kernel_launches"]["dense_sums"]},
+            **{q: query_records[q]["kernel_launches"]["dense_sums"]
+               for q in ("q12", "q4", "q5")}},
         "max_abs_err": worst,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bound_by": q1_shape["bound_by"],
         "library_ms": library_ms,
+        "at_shapes": {"q1": q1_shape, **k1_shapes},
     }]
     print(json.dumps({"q1": {"sf": SF, "capacity": CAPACITY,
                              "cold_s": cold, "warm_s": warm_s,
                              "warm_runs_s": warm}}))
-    for name in PHASE6 + PHASE7:
+    for name in PHASE6 + PHASE7 + PHASE8:
         print(json.dumps({name: query_records[name]}))
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -2,9 +2,10 @@
 operators over device batches, driven by the host."""
 
 from cockroach_tpu_torch.exec.operators import (
-    FlowRestart, HashAggOp, JoinOp, LimitOp, MapOp, Operator, OrderedAggOp,
-    ScanOp, SortOp, TopKOp, collect,
+    DistinctOp, FlowRestart, HashAggOp, JoinOp, LimitOp, MapOp, Operator,
+    OrderedAggOp, ScanOp, SortOp, TopKOp, collect,
 )
 
 __all__ = ["Operator", "ScanOp", "MapOp", "HashAggOp", "OrderedAggOp",
-           "JoinOp", "SortOp", "TopKOp", "LimitOp", "FlowRestart", "collect"]
+           "JoinOp", "DistinctOp", "SortOp", "TopKOp", "LimitOp",
+           "FlowRestart", "collect"]

@@ -1,9 +1,9 @@
 """Streaming operator tree over device batches.
 
 Counterpart of cockroach_tpu/exec/operators.py, for the operators on the
-paths of TPC-H Q1, Q3, Q6, Q9, Q12, Q14 and Q18: ScanOp -> MapOp
-(filter, projection) -> HashAggOp (the dense route, and the sort route
-with its scalar case), OrderedAggOp, JoinOp, ShrinkOp, SortOp (in
+paths of the fifteen TPC-H queries: ScanOp -> MapOp (filter,
+projection) -> HashAggOp (the dense route, and the sort route with its
+scalar case), OrderedAggOp, JoinOp, ShrinkOp, DistinctOp, SortOp (in
 memory), TopKOp and LimitOp. An operator yields Batches on the device
 that `collect` names; PyTorch runs eagerly, so there is no jit and no
 fused whole-flow program.
@@ -651,12 +651,27 @@ class ShrinkOp(Operator):
         yield out
 
 
+class DistinctOp(Operator):
+    """Cross-batch DISTINCT: a GROUP BY of the keys (all columns when
+    none are given) with no aggregates."""
+
+    def __init__(self, child: Operator, keys: Optional[Sequence[str]] = None):
+        keys = list(keys) if keys else child.schema.names()
+        self._agg = HashAggOp(child, keys, [])
+        self.schema = self._agg.schema
+
+    def batches(self, device: torch.device) -> Iterator[Batch]:
+        return self._agg.batches(device)
+
+
 # ------------------------------------------------------------------ walking
 
 def child_operators(op: Operator) -> List[Operator]:
     """Direct children of an operator node."""
     if isinstance(op, JoinOp):
         return [op.probe, op.build]
+    if isinstance(op, DistinctOp):
+        return [op._agg]
     child = getattr(op, "child", None)
     return [child] if child is not None else []
 

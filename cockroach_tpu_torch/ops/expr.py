@@ -23,7 +23,11 @@ makes explicit:
   inputs undefined (INT_MIN for all of them on the CPU), so the port
   clamps explicitly (_to_dtype);
 - XLA's compiled float arithmetic treats subnormal float32 operands as
-  zero and flushes subnormal results to zero (_ftz);
+  zero and flushes subnormal results to zero (_ftz), except where its
+  algebraic simplifier removes the operation: an add or subtract of a
+  constant zero, a multiply or divide by a constant 1 or -1, a divide by
+  a constant zero (whose NULL lanes divide by 1) and -0.0 - x leave the
+  other operand's bits as they are, or negated (_xla_fold);
 - `//` is floor division and `mod` truncates (lax.rem), as in the JAX
   package.
 
@@ -33,6 +37,7 @@ not ported: their evaluation raises, naming its ROADMAP.md item.
 
 from __future__ import annotations
 
+import math
 import re
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional, Tuple
@@ -447,6 +452,14 @@ def eval_expr(expr: Expr, batch: Batch, schema: Schema,
             rv = _as_float(rc.values, rt)
             if expr.op == "/":
                 validity = _and_validity(validity, rv != 0)
+            fold = _table(tables, expr, "xla_fold",
+                          lambda: _xla_fold(expr, schema))
+            if fold is not None:
+                side, negate = fold
+                kept = (_float32(lc.values, lt) if side == 0
+                        else _float32(rc.values, rt))
+                return Column(-kept if negate else kept, validity)
+            if expr.op == "/":
                 one = _scalar(1.0, torch.float32, dev)
                 vals = lv / torch.where(rv == 0, one, rv)
             else:
@@ -755,14 +768,73 @@ def _and_validity(validity, extra):
     return validity & extra
 
 
+def _float32(values: torch.Tensor, ty: ColType) -> torch.Tensor:
+    """A numeric column's values in float32, subnormals kept."""
+    if ty.kind is Kind.DECIMAL:
+        return _decimal_to_float(values, ty.scale)
+    return values.to(torch.float32)
+
+
 def _as_float(values: torch.Tensor, ty: ColType) -> torch.Tensor:
     """An operand of float arithmetic or comparison, in float32;
     subnormal float lanes read as zero (_ftz)."""
-    if ty.kind is Kind.DECIMAL:
-        return _decimal_to_float(values, ty.scale)
-    if ty.kind is Kind.FLOAT:
-        return _ftz(values.to(torch.float32))
-    return values.to(torch.float32)
+    v = _float32(values, ty)
+    return _ftz(v) if ty.kind is Kind.FLOAT else v
+
+
+def _has_col(e) -> bool:
+    """Whether an expression (or a tuple of them, as Case's whens)
+    references a column."""
+    if isinstance(e, Col):
+        return True
+    if isinstance(e, Expr):
+        return any(_has_col(v) for v in vars(e).values())
+    if isinstance(e, tuple):
+        return any(_has_col(x) for x in e)
+    return False
+
+
+def _constant_float(e: Expr, schema: Schema) -> Optional[float]:
+    """The float32 value of an expression without column references
+    (NULL reads as its zero lane), evaluated on the host; None for any
+    other expression."""
+    if _has_col(e):
+        return None
+    one = Batch({}, torch.ones(1, dtype=torch.bool),
+                torch.ones((), dtype=torch.int32))
+    return float(_float32(eval_expr(e, one, schema, {}).values,
+                          e.type(schema))[0])
+
+
+def _xla_fold(expr: BinOp, schema: Schema):
+    """The float BinOp forms XLA's algebraic simplifier removes under
+    jit, found by running the JAX package's eval_expr under jax.jit on the
+    CPU: x + 0, 0 + x, x - 0 (either zero's sign), x * 1, 1 * x, x / 1
+    and x / 0 (a zero divisor is replaced by 1 before the division) keep
+    x's bits; x * -1, -1 * x, x / -1 and -0.0 - x negate them. A constant
+    is any expression without column references, a NULL literal included
+    (its lanes hold zero). -> (index of the operand kept, negated?) or
+    None; there no flush happens, so a subnormal passes through."""
+    lc = _constant_float(expr.left, schema)
+    rc = _constant_float(expr.right, schema)
+    if expr.op == "+":
+        if rc == 0.0:
+            return 0, False
+        if lc == 0.0:
+            return 1, False
+    elif expr.op == "-":
+        if rc == 0.0:
+            return 0, False
+        if lc == 0.0 and math.copysign(1.0, lc) < 0:
+            return 1, True
+    elif expr.op == "*":
+        if rc in (1.0, -1.0):
+            return 0, rc < 0
+        if lc in (1.0, -1.0):
+            return 1, lc < 0
+    elif expr.op == "/" and rc in (0.0, 1.0, -1.0):
+        return 0, rc < 0
+    return None
 
 
 def _numeric_align(lv, lt: ColType, rv, rt: ColType):

@@ -2,9 +2,10 @@
 cockroach_tpu/sql)."""
 
 from cockroach_tpu_torch.sql.plan import (
-    Aggregate, Catalog, Filter, Join, Limit, OrderBy, Plan, Project, Scan,
-    TPCHCatalog, build, normalize,
+    Aggregate, Catalog, Distinct, Filter, Join, Limit, OrderBy, Plan,
+    Project, Scan, TPCHCatalog, build, normalize,
 )
 
-__all__ = ["Aggregate", "Catalog", "Filter", "Join", "Limit", "OrderBy",
-           "Plan", "Project", "Scan", "TPCHCatalog", "build", "normalize"]
+__all__ = ["Aggregate", "Catalog", "Distinct", "Filter", "Join", "Limit",
+           "OrderBy", "Plan", "Project", "Scan", "TPCHCatalog", "build",
+           "normalize"]

@@ -1,14 +1,15 @@
 """Logical query plans and the plan -> operator-tree builder.
 
-Counterpart of cockroach_tpu/sql/plan.py, for the plan nodes on the paths
-of TPC-H Q1, Q3, Q6, Q9, Q12, Q14 and Q18: Scan, Filter, Shrink, Project,
-Join, Aggregate, OrderBy and Limit. `normalize` runs the JAX package's
+Counterpart of cockroach_tpu/sql/plan.py, for the plan nodes of the
+fifteen TPC-H queries of the JAX package's PLANS: Scan, Filter, Shrink,
+Project, Join, Aggregate, OrderBy, Limit, Distinct and Apply (a
+correlated or scalar subquery). `normalize` runs the JAX package's
 passes in its order: decorrelate, push_filters, use_indexes,
-insert_shrinks. Two of them are no-ops on these plans and are not ported:
-`decorrelate` rewrites only Apply nodes (correlated subqueries), which
-these plans do not hold, and `use_indexes` changes nothing for a catalog
-without secondary indexes, which the TPC-H catalog is (ROADMAP.md queue
-1, item 5). `insert_shrinks` reads the catalog's sampled statistics
+insert_shrinks. `use_indexes` changes nothing for a catalog without
+secondary indexes, which the TPC-H catalog is, and is not ported
+(ROADMAP.md queue 1, item 5). `decorrelate` rewrites every Apply into
+joins and aggregates before the other passes run, so they and `build`
+never see one. `insert_shrinks` reads the catalog's sampled statistics
 (sql/stats.py) through the cardinality model `estimate_cardinality`, so
 the port builds the JAX package's operator tree, ShrinkOps and their
 start capacities included. `build` assembles the port's exec/ operators.
@@ -23,13 +24,13 @@ import itertools
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
-from cockroach_tpu_torch.coldata.batch import Kind, Schema
+from cockroach_tpu_torch.coldata.batch import INT, Kind, Schema
 from cockroach_tpu_torch.exec.operators import (
-    HashAggOp, JoinOp, LimitOp, MapOp, Operator, OrderedAggOp, ScanOp,
-    ShrinkOp, SortOp, TopKOp,
+    DistinctOp, HashAggOp, JoinOp, LimitOp, MapOp, Operator, OrderedAggOp,
+    ScanOp, ShrinkOp, SortOp, TopKOp,
 )
 from cockroach_tpu_torch.ops.agg import AggSpec
-from cockroach_tpu_torch.ops.expr import BoolOp, Col, Expr, StrFunc
+from cockroach_tpu_torch.ops.expr import BoolOp, Col, Expr, Lit, StrFunc
 from cockroach_tpu_torch.ops.sort import SortKey
 from cockroach_tpu_torch.sql.stats import (
     TableStats, conjunct_selectivity, sample_stats,
@@ -192,6 +193,41 @@ class Limit(Plan):
         return (self.input,)
 
 
+@dataclass(frozen=True)
+class Distinct(Plan):
+    input: Plan
+    keys: Optional[Tuple[str, ...]] = None
+
+    def inputs(self):
+        return (self.input,)
+
+
+@dataclass(frozen=True)
+class Apply(Plan):
+    """Correlated subquery: for each `input` row, the subquery `sub`
+    restricted to the rows whose `correlation` columns match. Never
+    executed directly: `decorrelate()` rewrites every Apply into the
+    join + aggregate form before the builder runs.
+
+    - kind="exists"     -> semi Join(input, sub) on the correlation
+    - kind="not_exists" -> anti Join(input, sub) on the correlation
+    - kind="scalar"     -> Aggregate(sub, group_by=inner correlation
+      cols, (scalar,)) + LEFT Join: an empty group surfaces as NULL
+      through the left join's validity. An empty correlation (an
+      uncorrelated scalar subquery, Q15's shape) joins on a constant
+      key: the one aggregate row reaches every input row.
+    """
+
+    input: Plan
+    sub: Plan
+    correlation: Tuple[Tuple[str, str], ...]  # (outer col, inner col)
+    kind: str = "exists"        # "exists" | "not_exists" | "scalar"
+    scalar: Optional[AggSpec] = None   # kind="scalar": the aggregate
+
+    def inputs(self):
+        return (self.input, self.sub)
+
+
 def _expr_columns(e: Expr, out: set) -> set:
     if isinstance(e, Col):
         out.add(e.name)
@@ -226,6 +262,16 @@ def _plan_columns(p: Plan, catalog: Catalog) -> List[str]:
                 cols += [f"{a.out}__hi", f"{a.out}__lo"]
             else:
                 cols.append(a.out)
+        return cols
+    if isinstance(p, Distinct):
+        return (list(p.keys) if p.keys
+                else _plan_columns(p.input, catalog))
+    if isinstance(p, Apply):
+        cols = _plan_columns(p.input, catalog)
+        if p.kind == "scalar" and p.scalar is not None:
+            # the decorrelated form strips its helper join keys: output
+            # is the input plus the one scalar column
+            cols = cols + [p.scalar.out]
         return cols
     raise TypeError(type(p))
 
@@ -279,6 +325,10 @@ def _rebuild(p: Plan, kids) -> Plan:
         return OrderBy(kids[0], p.keys)
     if isinstance(p, Limit):
         return Limit(kids[0], p.n, p.offset)
+    if isinstance(p, Distinct):
+        return Distinct(kids[0], p.keys)
+    if isinstance(p, Apply):
+        return Apply(kids[0], kids[1], p.correlation, p.kind, p.scalar)
     raise TypeError(f"unknown plan node {type(p).__name__}")
 
 
@@ -384,6 +434,8 @@ def estimate_cardinality(p: Plan, catalog: Catalog) -> float:
         return max(ce / 2.0, 1.0) if p.group_by else 1.0
     if isinstance(p, Limit):
         return float(min(estimate_cardinality(p.input, catalog), p.n))
+    if isinstance(p, Distinct):
+        return max(estimate_cardinality(p.input, catalog) / 2.0, 1.0)
     if p.inputs():
         return estimate_cardinality(p.inputs()[0], catalog)
     return 1.0
@@ -439,17 +491,63 @@ def _shrink_rec(p: Plan, catalog: Optional[Catalog], under_agg: bool):
                 return Shrink(out, start_capacity=cap), True
         return out, (smalls[0] and p.how in ("inner", "left", "semi",
                                              "anti"))
-    if isinstance(p, (Filter, Project, Limit, OrderBy, Aggregate)):
+    if isinstance(p, (Filter, Project, Limit, OrderBy, Distinct,
+                      Aggregate)):
         # row-preserving (or row-reducing) single-child nodes keep their
         # child's smallness
         return out, smalls[0]
     return out, False
 
 
+def decorrelate(p: Plan, catalog: Catalog) -> Plan:
+    """Rewrite every Apply (correlated subquery) into join + aggregate
+    form (see Apply's docstring). Runs first in normalize(): the later
+    passes and the builder only see ordinary relational nodes."""
+    kids = tuple(decorrelate(k, catalog) for k in p.inputs())
+    if not isinstance(p, Apply):
+        return _rebuild(p, kids) if kids else p
+    outer, sub = kids
+    outer_on = tuple(a for a, _ in p.correlation)
+    inner_on = tuple(b for _, b in p.correlation)
+    if p.kind in ("exists", "not_exists"):
+        how = "semi" if p.kind == "exists" else "anti"
+        return Join(outer, sub, outer_on, inner_on, how)
+    if p.kind != "scalar" or p.scalar is None:
+        raise TypeError(f"Apply kind {p.kind!r} needs a scalar AggSpec")
+    out_cols = _plan_columns(outer, catalog)
+    if not p.correlation:
+        # uncorrelated scalar subquery: the single aggregate row reaches
+        # every input row through a constant join key
+        outer = Project(outer, tuple((n, Col(n)) for n in out_cols)
+                        + (("__apply_c0", Lit(0, INT)),))
+        outer_on = ("__apply_c0",)
+        inner_on = ("__apply_c0_",)
+        agg = Aggregate(sub, (), (p.scalar,))
+        inner = Project(agg, (("__apply_c0_", Lit(0, INT)),
+                              (p.scalar.out, Col(p.scalar.out))))
+    else:
+        # one aggregate row per distinct correlation key; the keys are
+        # renamed so the join never collides with same-named outer
+        # columns
+        agg = Aggregate(sub, inner_on, (p.scalar,))
+        renames = tuple((f"__apply_k{i}", Col(c))
+                        for i, c in enumerate(inner_on))
+        inner = Project(agg, renames
+                        + ((p.scalar.out, Col(p.scalar.out)),))
+        inner_on = tuple(f"__apply_k{i}" for i in range(len(inner_on)))
+    joined = Join(outer, inner, outer_on, inner_on, "left")
+    # strip the helper keys: Apply's contract is input cols + the scalar
+    # (NULL where the group was empty, through the left join's validity)
+    return Project(joined, tuple((n, Col(n)) for n in out_cols)
+                   + ((p.scalar.out, Col(p.scalar.out)),))
+
+
 def normalize(p: Plan, catalog: Catalog) -> Plan:
-    """The JAX package's normalize on plans without Apply nodes, over a
-    catalog without secondary indexes: insert_shrinks(push_filters(p))."""
-    return insert_shrinks(push_filters(p, catalog), catalog)
+    """The JAX package's normalize over a catalog without secondary
+    indexes (where its use_indexes pass changes nothing):
+    insert_shrinks(push_filters(decorrelate(p)))."""
+    return insert_shrinks(push_filters(decorrelate(p, catalog), catalog),
+                          catalog)
 
 
 # ------------------------------------------------------------------ build --
@@ -548,6 +646,9 @@ def build(p: Plan, catalog: Catalog, capacity: int = 1 << 17,
                 return TopKOp(rec(node.input.input), list(node.input.keys),
                               node.n)
             return LimitOp(rec(node.input), node.n, node.offset)
+        if isinstance(node, Distinct):
+            return DistinctOp(rec(node.input),
+                              list(node.keys) if node.keys else None)
         raise TypeError(f"unknown plan node {type(node).__name__}")
 
     return rec(p)

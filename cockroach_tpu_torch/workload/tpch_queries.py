@@ -1,8 +1,10 @@
 """TPC-H queries as logical plans (sql/plan.py) + numpy oracles.
 
-Counterpart of cockroach_tpu/workload/tpch_queries.py, for Q1, Q3, Q6,
-Q9, Q12, Q14 and Q18: each query's plan, its builder, its numpy oracle
-and, for all but Q6, its vectorized (columnar) numpy oracle. The oracles
+Counterpart of cockroach_tpu/workload/tpch_queries.py, for its fifteen
+queries (QUERIES, PLANS): Q1, Q2, Q3, Q4, Q5, Q6, Q9, Q10, Q12, Q14,
+Q15, Q16, Q17, Q18 and Q19. Each has its plan, its builder and its numpy
+oracle; those whose row loop walks lineitem (Q1, Q3, Q5, Q9, Q10, Q12,
+Q14, Q15, Q17, Q18) have a vectorized (columnar) oracle too. The oracles
 compute reference answers on the same generated data; the columnar ones
 run in seconds at SF 1, where the row loops take much longer.
 """
@@ -10,6 +12,7 @@ run in seconds at SF 1, where the row loops take much longer.
 from __future__ import annotations
 
 import datetime
+import re
 from typing import Dict
 
 import numpy as np
@@ -22,8 +25,8 @@ from cockroach_tpu_torch.ops.expr import (
 )
 from cockroach_tpu_torch.ops.sort import SortKey
 from cockroach_tpu_torch.sql.plan import (
-    Aggregate, Filter, Join, Limit, OrderBy, Project, Scan, TPCHCatalog,
-    build,
+    Aggregate, Apply, Distinct, Filter, Join, Limit, OrderBy, Project, Scan,
+    TPCHCatalog, build,
 )
 from cockroach_tpu_torch.workload.tpch import TPCH, _days
 
@@ -48,6 +51,21 @@ def _lookup(keys: np.ndarray, values: np.ndarray, probe: np.ndarray):
     """values[i] where keys[i] == probe, for probe keys that all exist."""
     order = np.argsort(keys)
     return values[order][np.searchsorted(keys[order], probe)]
+
+
+def _group_sums(keys: np.ndarray, values: np.ndarray) -> Dict[int, int]:
+    """{key: exact int64 sum of its values}."""
+    uk, inv = np.unique(keys, return_inverse=True)
+    sums = np.zeros(len(uk), np.int64)
+    np.add.at(sums, inv, values)
+    return {int(k): int(v) for k, v in zip(uk, sums)}
+
+
+def name_rank(gen: TPCH, table: str, col: str) -> np.ndarray:
+    """Each dictionary code's rank in name order: the order ORDER BY
+    gives a dictionary column (ops/sort.py)."""
+    d = gen.schema(table).dicts[col]
+    return np.argsort(np.argsort(np.asarray(d).astype(str)))
 
 
 # ------------------------------------------------------------------- Q1 ---
@@ -577,3 +595,606 @@ def q14_oracle_columnar(gen: TPCH) -> tuple:
            * (100 - l["l_discount"][keep].astype(np.int64)))
     ptype = _lookup(p["p_partkey"], p["p_type"], l["l_partkey"][keep])
     return int(rev[_q14_promo(gen)[ptype]].sum()), int(rev.sum())
+
+
+# ------------------------------------------------------------------- Q2 ---
+# Minimum-cost supplier: the canonical CORRELATED SCALAR subquery
+# (ps_supplycost = MIN over the same partsupp join restricted to the
+# part). Written as an Apply node; decorrelate() rewrites it into the
+# join+aggregate form, and CSE dedups the shared partsupp subtree.
+
+Q2_SIZE = 15
+
+
+def q2_plan():
+    europe = Project(Filter(Scan("region", ("r_regionkey", "r_name")),
+                            Cmp("==", Col("r_name"), Lit("EUROPE"))),
+                     (("r_regionkey", Col("r_regionkey")),))
+    nations = Join(Scan("nation", ("n_nationkey", "n_name", "n_regionkey")),
+                   europe, ("n_regionkey",), ("r_regionkey",), how="semi")
+    supp = Join(Scan("supplier", ("s_suppkey", "s_name", "s_nationkey",
+                                  "s_acctbal")),
+                nations, ("s_nationkey",), ("n_nationkey",))
+    ps = Join(Scan("partsupp", ("ps_partkey", "ps_suppkey",
+                                "ps_supplycost")),
+              supp, ("ps_suppkey",), ("s_suppkey",))
+    parts = Filter(Scan("part", ("p_partkey", "p_mfgr", "p_size", "p_type")),
+                   BoolOp("and", (Cmp("==", Col("p_size"), Lit(Q2_SIZE)),
+                                  Like(Col("p_type"), "%BRASS"))))
+    outer = Join(ps, parts, ("ps_partkey",), ("p_partkey",))
+    sub = Project(ps, (("ps_partkey_", Col("ps_partkey")),
+                       ("cost_", Col("ps_supplycost"))))
+    ap = Apply(outer, sub, (("p_partkey", "ps_partkey_"),), kind="scalar",
+               scalar=AggSpec("min", "cost_", "min_cost"))
+    best = Filter(ap, Cmp("==", Col("ps_supplycost"), Col("min_cost")))
+    proj = Project(best, (("s_acctbal", Col("s_acctbal")),
+                          ("s_name", Col("s_name")),
+                          ("n_name", Col("n_name")),
+                          ("p_partkey", Col("p_partkey")),
+                          ("p_mfgr", Col("p_mfgr")),
+                          ("ps_supplycost", Col("ps_supplycost")),
+                          ("s_suppkey", Col("s_suppkey"))))
+    # s_suppkey appended to the spec's sort keys: (p_partkey, s_suppkey)
+    # is unique, so the LIMIT boundary is deterministic vs the oracle
+    return Limit(OrderBy(proj, (SortKey("s_acctbal", descending=True),
+                                SortKey("n_name"), SortKey("s_name"),
+                                SortKey("p_partkey"),
+                                SortKey("s_suppkey"))), 100)
+
+
+def q2(gen: TPCH, capacity: int = 1 << 17, catalog=None) -> Operator:
+    return _build(gen, q2_plan(), capacity, catalog)
+
+
+def q2_oracle(gen: TPCH):
+    """[(s_acctbal, s_name, n_name, p_partkey, p_mfgr, ps_supplycost,
+    s_suppkey)] of the top 100, by row loops; n_name and s_name order by
+    name, as ORDER BY orders a dictionary column."""
+    r, n = gen.table("region"), gen.table("nation")
+    s, ps, p = gen.table("supplier"), gen.table("partsupp"), gen.table("part")
+    eu = _code(gen, "region", "r_name", "EUROPE")
+    eu_reg = set(r["r_regionkey"][r["r_name"] == eu].tolist())
+    eu_nat = {int(k) for k, rk in zip(n["n_nationkey"], n["n_regionkey"])
+              if int(rk) in eu_reg}
+    nname = dict(zip(n["n_nationkey"].tolist(), n["n_name"].tolist()))
+    s_nat = dict(zip(s["s_suppkey"].tolist(), s["s_nationkey"].tolist()))
+    s_bal = dict(zip(s["s_suppkey"].tolist(), s["s_acctbal"].tolist()))
+    s_nm = dict(zip(s["s_suppkey"].tolist(), s["s_name"].tolist()))
+    types = np.asarray(gen.schema("part").dicts["p_type"], dtype=object)
+    brass = np.array([str(t).endswith("BRASS") for t in types])
+    keepp = (p["p_size"] == Q2_SIZE) & brass[p["p_type"]]
+    pmfgr = dict(zip(p["p_partkey"][keepp].tolist(),
+                     p["p_mfgr"][keepp].tolist()))
+    mincost: Dict[int, int] = {}
+    for pk, sk, cost in zip(ps["ps_partkey"].tolist(),
+                            ps["ps_suppkey"].tolist(),
+                            ps["ps_supplycost"].tolist()):
+        if s_nat[sk] in eu_nat:
+            mincost[pk] = min(mincost.get(pk, 1 << 62), cost)
+    nrank = name_rank(gen, "nation", "n_name")
+    srank = name_rank(gen, "supplier", "s_name")
+    rows = []
+    for pk, sk, cost in zip(ps["ps_partkey"].tolist(),
+                            ps["ps_suppkey"].tolist(),
+                            ps["ps_supplycost"].tolist()):
+        nk = s_nat[sk]
+        if nk not in eu_nat or pk not in pmfgr or cost != mincost[pk]:
+            continue
+        nn, snm = nname[nk], s_nm[sk]
+        rows.append((-s_bal[sk], nrank[nn], srank[snm], pk, sk, nn, snm,
+                     cost))
+    rows.sort()
+    return [(-nb, snm, nn, pk, pmfgr[pk], cost, sk)
+            for nb, _nr, _sr, pk, sk, nn, snm, cost in rows[:100]]
+
+
+# ------------------------------------------------------------------- Q4 ---
+# Order priority checking: EXISTS correlated subquery -> Apply node ->
+# decorrelated into a SEMI join.
+
+Q4_LO, Q4_HI = _days(1993, 7, 1), _days(1993, 10, 1)
+
+
+def q4_plan():
+    orders = Filter(
+        Scan("orders", ("o_orderkey", "o_orderdate", "o_orderpriority")),
+        BoolOp("and", (Cmp(">=", Col("o_orderdate"), Lit(Q4_LO, INT)),
+                       Cmp("<", Col("o_orderdate"), Lit(Q4_HI, INT)))))
+    late = Project(
+        Filter(Scan("lineitem", ("l_orderkey", "l_commitdate",
+                                 "l_receiptdate")),
+               Cmp("<", Col("l_commitdate"), Col("l_receiptdate"))),
+        (("l_orderkey", Col("l_orderkey")),))
+    ap = Apply(orders, late, (("o_orderkey", "l_orderkey"),), kind="exists")
+    agg = Aggregate(ap, ("o_orderpriority",),
+                    (AggSpec("count_star", None, "order_count"),))
+    # priority dict pool is ordered 1-URGENT..5-LOW: code order == text order
+    return OrderBy(agg, (SortKey("o_orderpriority"),))
+
+
+def q4(gen: TPCH, capacity: int = 1 << 17, catalog=None) -> Operator:
+    return _build(gen, q4_plan(), capacity, catalog)
+
+
+def q4_oracle(gen: TPCH) -> Dict[int, int]:
+    """{o_orderpriority code: order_count}, by row loops."""
+    o, l = gen.table("orders"), gen.table("lineitem")
+    late = set(l["l_orderkey"][
+        l["l_commitdate"] < l["l_receiptdate"]].tolist())
+    keep = (o["o_orderdate"] >= Q4_LO) & (o["o_orderdate"] < Q4_HI)
+    out: Dict[int, int] = {}
+    for ok, pr in zip(o["o_orderkey"][keep].tolist(),
+                      o["o_orderpriority"][keep].tolist()):
+        if ok in late:
+            out[pr] = out.get(pr, 0) + 1
+    return out
+
+
+# ------------------------------------------------------------------- Q5 ---
+# Local supplier volume: 6-way join where the c_nationkey==s_nationkey
+# constraint rides as a second hash-join key pair.
+
+Q5_LO, Q5_HI = _days(1994, 1, 1), _days(1995, 1, 1)
+
+
+def q5_plan():
+    asia = Project(Filter(Scan("region", ("r_regionkey", "r_name")),
+                          Cmp("==", Col("r_name"), Lit("ASIA"))),
+                   (("r_regionkey", Col("r_regionkey")),))
+    nations = Join(Scan("nation", ("n_nationkey", "n_name", "n_regionkey")),
+                   asia, ("n_regionkey",), ("r_regionkey",), how="semi")
+    supp = Join(Scan("supplier", ("s_suppkey", "s_nationkey")), nations,
+                ("s_nationkey",), ("n_nationkey",))
+    orders = Filter(Scan("orders", ("o_orderkey", "o_custkey",
+                                    "o_orderdate")),
+                    BoolOp("and", (Cmp(">=", Col("o_orderdate"),
+                                       Lit(Q5_LO, INT)),
+                                   Cmp("<", Col("o_orderdate"),
+                                       Lit(Q5_HI, INT)))))
+    co = Join(orders, Scan("customer", ("c_custkey", "c_nationkey")),
+              ("o_custkey",), ("c_custkey",))
+    lo = Join(Scan("lineitem", ("l_orderkey", "l_suppkey",
+                                "l_extendedprice", "l_discount")),
+              co, ("l_orderkey",), ("o_orderkey",))
+    # local-supplier constraint: join on BOTH suppkey and nationkey
+    joined = Join(lo, supp, ("l_suppkey", "c_nationkey"),
+                  ("s_suppkey", "s_nationkey"))
+    proj = Project(joined, (("n_name", Col("n_name")),
+                            ("rev", _rev_expr())))
+    agg = Aggregate(proj, ("n_name",), (AggSpec("sum", "rev", "revenue"),))
+    return OrderBy(agg, (SortKey("revenue", descending=True),
+                         SortKey("n_name")))
+
+
+def q5(gen: TPCH, capacity: int = 1 << 17, catalog=None) -> Operator:
+    return _build(gen, q5_plan(), capacity, catalog)
+
+
+def q5_oracle(gen: TPCH) -> Dict[int, int]:
+    """{n_name code: revenue}, scale 4, by row loops."""
+    r, n, s = gen.table("region"), gen.table("nation"), gen.table("supplier")
+    c, o, l = gen.table("customer"), gen.table("orders"), gen.table("lineitem")
+    asia = _code(gen, "region", "r_name", "ASIA")
+    regs = set(r["r_regionkey"][r["r_name"] == asia].tolist())
+    nset = {int(k) for k, rk in zip(n["n_nationkey"], n["n_regionkey"])
+            if int(rk) in regs}
+    nname = dict(zip(n["n_nationkey"].tolist(), n["n_name"].tolist()))
+    snat = dict(zip(s["s_suppkey"].tolist(), s["s_nationkey"].tolist()))
+    cnat = dict(zip(c["c_custkey"].tolist(), c["c_nationkey"].tolist()))
+    okeep = (o["o_orderdate"] >= Q5_LO) & (o["o_orderdate"] < Q5_HI)
+    ocust = dict(zip(o["o_orderkey"][okeep].tolist(),
+                     o["o_custkey"][okeep].tolist()))
+    out: Dict[int, int] = {}
+    for ok, sk, px, dc in zip(l["l_orderkey"].tolist(),
+                              l["l_suppkey"].tolist(),
+                              l["l_extendedprice"].tolist(),
+                              l["l_discount"].tolist()):
+        ck = ocust.get(int(ok))
+        if ck is None:
+            continue
+        nk = snat[int(sk)]
+        if nk not in nset or cnat[ck] != nk:
+            continue
+        key = int(nname[nk])
+        out[key] = out.get(key, 0) + int(px) * (100 - int(dc))
+    return out
+
+
+def q5_oracle_columnar(gen: TPCH) -> Dict[int, int]:
+    """Vectorized numpy Q5, in q5_oracle's form (exact int64 sums)."""
+    r, n, s = gen.table("region"), gen.table("nation"), gen.table("supplier")
+    c, o, l = gen.table("customer"), gen.table("orders"), gen.table("lineitem")
+    asia = _code(gen, "region", "r_name", "ASIA")
+    regs = r["r_regionkey"][r["r_name"] == asia]
+    nset = n["n_nationkey"][np.isin(n["n_regionkey"], regs)]
+    okeep = (o["o_orderdate"] >= Q5_LO) & (o["o_orderdate"] < Q5_HI)
+    lo = np.isin(l["l_orderkey"], o["o_orderkey"][okeep])
+    cust = _lookup(o["o_orderkey"], o["o_custkey"], l["l_orderkey"][lo])
+    cnat = _lookup(c["c_custkey"], c["c_nationkey"], cust)
+    snat = _lookup(s["s_suppkey"], s["s_nationkey"], l["l_suppkey"][lo])
+    keep = (cnat == snat) & np.isin(snat, nset)
+    rev = (l["l_extendedprice"][lo][keep].astype(np.int64)
+           * (100 - l["l_discount"][lo][keep].astype(np.int64)))
+    names = _lookup(n["n_nationkey"], n["n_name"], snat[keep])
+    return _group_sums(names, rev)
+
+
+# ------------------------------------------------------------------ Q10 ---
+# Returned-item reporting: 4-way join + grouped agg + top-20.
+
+Q10_LO, Q10_HI = _days(1993, 10, 1), _days(1994, 1, 1)
+
+
+def q10_plan():
+    orders = Filter(Scan("orders", ("o_orderkey", "o_custkey",
+                                    "o_orderdate")),
+                    BoolOp("and", (Cmp(">=", Col("o_orderdate"),
+                                       Lit(Q10_LO, INT)),
+                                   Cmp("<", Col("o_orderdate"),
+                                       Lit(Q10_HI, INT)))))
+    line = Filter(Scan("lineitem", ("l_orderkey", "l_returnflag",
+                                    "l_extendedprice", "l_discount")),
+                  Cmp("==", Col("l_returnflag"), Lit("R")))
+    lo = Join(line, orders, ("l_orderkey",), ("o_orderkey",))
+    cust = Join(Scan("customer", ("c_custkey", "c_name", "c_acctbal",
+                                  "c_nationkey")),
+                Scan("nation", ("n_nationkey", "n_name")),
+                ("c_nationkey",), ("n_nationkey",))
+    joined = Join(lo, cust, ("o_custkey",), ("c_custkey",))
+    proj = Project(joined, (("c_custkey", Col("c_custkey")),
+                            ("c_name", Col("c_name")),
+                            ("c_acctbal", Col("c_acctbal")),
+                            ("n_name", Col("n_name")),
+                            ("rev", _rev_expr())))
+    agg = Aggregate(proj, ("c_custkey", "c_name", "c_acctbal", "n_name"),
+                    (AggSpec("sum", "rev", "revenue"),))
+    # c_custkey tiebreak: group keys are unique per custkey, so the
+    # LIMIT boundary is deterministic
+    return Limit(OrderBy(agg, (SortKey("revenue", descending=True),
+                               SortKey("c_custkey"))), 20)
+
+
+def q10(gen: TPCH, capacity: int = 1 << 17, catalog=None) -> Operator:
+    return _build(gen, q10_plan(), capacity, catalog)
+
+
+def q10_oracle(gen: TPCH):
+    """[(c_custkey, c_name, c_acctbal, n_name, revenue)] of the top 20,
+    by row loops."""
+    c, o = gen.table("customer"), gen.table("orders")
+    l, n = gen.table("lineitem"), gen.table("nation")
+    rcode = _code(gen, "lineitem", "l_returnflag", "R")
+    okeep = (o["o_orderdate"] >= Q10_LO) & (o["o_orderdate"] < Q10_HI)
+    ocust = dict(zip(o["o_orderkey"][okeep].tolist(),
+                     o["o_custkey"][okeep].tolist()))
+    rev: Dict[int, int] = {}
+    lkeep = l["l_returnflag"] == rcode
+    for ok, px, dc in zip(l["l_orderkey"][lkeep].tolist(),
+                          l["l_extendedprice"][lkeep].tolist(),
+                          l["l_discount"][lkeep].tolist()):
+        ck = ocust.get(int(ok))
+        if ck is not None:
+            rev[ck] = rev.get(ck, 0) + int(px) * (100 - int(dc))
+    cinfo = {int(k): (int(nm), int(ab), int(nk)) for k, nm, ab, nk in
+             zip(c["c_custkey"], c["c_name"], c["c_acctbal"],
+                 c["c_nationkey"])}
+    nname = dict(zip(n["n_nationkey"].tolist(), n["n_name"].tolist()))
+    rows = sorted((-r, ck) for ck, r in rev.items())[:20]
+    return [(ck, cinfo[ck][0], cinfo[ck][1], nname[cinfo[ck][2]], -nr)
+            for nr, ck in rows]
+
+
+def q10_oracle_columnar(gen: TPCH):
+    """Vectorized numpy Q10, in q10_oracle's form (exact int64 sums)."""
+    c, o = gen.table("customer"), gen.table("orders")
+    l, n = gen.table("lineitem"), gen.table("nation")
+    rcode = _code(gen, "lineitem", "l_returnflag", "R")
+    okeep = (o["o_orderdate"] >= Q10_LO) & (o["o_orderdate"] < Q10_HI)
+    lk = (l["l_returnflag"] == rcode) & np.isin(l["l_orderkey"],
+                                                o["o_orderkey"][okeep])
+    cust = _lookup(o["o_orderkey"], o["o_custkey"], l["l_orderkey"][lk])
+    rev = (l["l_extendedprice"][lk].astype(np.int64)
+           * (100 - l["l_discount"][lk].astype(np.int64)))
+    sums = _group_sums(cust, rev)
+    ck = np.fromiter(sums, dtype=np.int64, count=len(sums))
+    tot = np.fromiter(sums.values(), dtype=np.int64, count=len(sums))
+    top = np.lexsort((ck, -tot))[:20]
+    ck, tot = ck[top], tot[top]
+    name = _lookup(c["c_custkey"], c["c_name"], ck)
+    bal = _lookup(c["c_custkey"], c["c_acctbal"], ck)
+    nat = _lookup(n["n_nationkey"], n["n_name"],
+                  _lookup(c["c_custkey"], c["c_nationkey"], ck))
+    return [(int(a), int(b), int(x), int(y), int(z))
+            for a, b, x, y, z in zip(ck, name, bal, nat, tot)]
+
+
+# ------------------------------------------------------------------ Q15 ---
+# Top supplier: UNCORRELATED scalar subquery (max over the revenue view)
+# via an Apply with empty correlation; CSE builds the revenue aggregate
+# ONCE for both the outer reference and the max.
+
+Q15_LO, Q15_HI = _days(1996, 1, 1), _days(1996, 4, 1)
+
+
+def q15_plan():
+    rev = Aggregate(
+        Project(Filter(Scan("lineitem", ("l_suppkey", "l_shipdate",
+                                         "l_extendedprice", "l_discount")),
+                       BoolOp("and", (Cmp(">=", Col("l_shipdate"),
+                                          Lit(Q15_LO, INT)),
+                                      Cmp("<", Col("l_shipdate"),
+                                          Lit(Q15_HI, INT))))),
+                (("l_suppkey", Col("l_suppkey")), ("rev", _rev_expr()))),
+        ("l_suppkey",), (AggSpec("sum", "rev", "total_revenue"),))
+    best = Apply(rev, rev, (), kind="scalar",
+                 scalar=AggSpec("max", "total_revenue", "max_rev"))
+    top = Filter(best, Cmp("==", Col("total_revenue"), Col("max_rev")))
+    joined = Join(Scan("supplier", ("s_suppkey", "s_name")), top,
+                  ("s_suppkey",), ("l_suppkey",))
+    proj = Project(joined, (("s_suppkey", Col("s_suppkey")),
+                            ("s_name", Col("s_name")),
+                            ("total_revenue", Col("total_revenue"))))
+    return OrderBy(proj, (SortKey("s_suppkey"),))
+
+
+def q15(gen: TPCH, capacity: int = 1 << 17, catalog=None) -> Operator:
+    return _build(gen, q15_plan(), capacity, catalog)
+
+
+def q15_oracle(gen: TPCH):
+    """[(s_suppkey, s_name, total_revenue)] of the top suppliers, by
+    row loops."""
+    l, s = gen.table("lineitem"), gen.table("supplier")
+    keep = (l["l_shipdate"] >= Q15_LO) & (l["l_shipdate"] < Q15_HI)
+    rev: Dict[int, int] = {}
+    for sk, px, dc in zip(l["l_suppkey"][keep].tolist(),
+                          l["l_extendedprice"][keep].tolist(),
+                          l["l_discount"][keep].tolist()):
+        rev[sk] = rev.get(sk, 0) + int(px) * (100 - int(dc))
+    best = max(rev.values())
+    sname = dict(zip(s["s_suppkey"].tolist(), s["s_name"].tolist()))
+    return sorted((sk, sname[sk], r) for sk, r in rev.items() if r == best)
+
+
+def q15_oracle_columnar(gen: TPCH):
+    """Vectorized numpy Q15, in q15_oracle's form (exact int64 sums)."""
+    l, s = gen.table("lineitem"), gen.table("supplier")
+    keep = (l["l_shipdate"] >= Q15_LO) & (l["l_shipdate"] < Q15_HI)
+    rev = (l["l_extendedprice"][keep].astype(np.int64)
+           * (100 - l["l_discount"][keep].astype(np.int64)))
+    sums = _group_sums(l["l_suppkey"][keep], rev)
+    best = max(sums.values())
+    sk = np.asarray(sorted(k for k, v in sums.items() if v == best),
+                    dtype=np.int64)
+    names = _lookup(s["s_suppkey"], s["s_name"], sk)
+    return [(int(k), int(nm), best) for k, nm in zip(sk, names)]
+
+
+# ------------------------------------------------------------------ Q16 ---
+# Parts/supplier relationship: NOT LIKE, anti join against complaining
+# suppliers, and COUNT(DISTINCT) via an explicit Distinct node.
+
+_Q16_SIZES = (49, 14, 23, 45, 19, 3, 36, 9)
+
+
+def q16_plan():
+    parts = Filter(
+        Scan("part", ("p_partkey", "p_brand", "p_type", "p_size")),
+        BoolOp("and", (Cmp("!=", Col("p_brand"), Lit("Brand#45")),
+                       Like(Col("p_type"), "MEDIUM POLISHED%", negate=True),
+                       InList(Col("p_size"), _Q16_SIZES))))
+    bad = Project(Filter(Scan("supplier", ("s_suppkey", "s_comment")),
+                         Like(Col("s_comment"), "%Customer%Complaints%")),
+                  (("bad_sk", Col("s_suppkey")),))
+    ps = Join(Scan("partsupp", ("ps_partkey", "ps_suppkey")), bad,
+              ("ps_suppkey",), ("bad_sk",), how="anti")
+    joined = Join(ps, parts, ("ps_partkey",), ("p_partkey",))
+    dist = Distinct(joined, ("p_brand", "p_type", "p_size", "ps_suppkey"))
+    agg = Aggregate(dist, ("p_brand", "p_type", "p_size"),
+                    (AggSpec("count_star", None, "supplier_cnt"),))
+    return OrderBy(agg, (SortKey("supplier_cnt", descending=True),
+                         SortKey("p_brand"), SortKey("p_type"),
+                         SortKey("p_size")))
+
+
+def q16(gen: TPCH, capacity: int = 1 << 17, catalog=None) -> Operator:
+    return _build(gen, q16_plan(), capacity, catalog)
+
+
+def q16_oracle(gen: TPCH) -> Dict[tuple, int]:
+    """{(p_brand, p_type, p_size): supplier_cnt}, by row loops."""
+    p, ps, s = gen.table("part"), gen.table("partsupp"), gen.table("supplier")
+    b45 = _code(gen, "part", "p_brand", "Brand#45")
+    types = np.asarray(gen.schema("part").dicts["p_type"], dtype=object)
+    medpol = np.array([str(t).startswith("MEDIUM POLISHED") for t in types])
+    keepp = ((p["p_brand"] != b45) & ~medpol[p["p_type"]]
+             & np.isin(p["p_size"], np.asarray(_Q16_SIZES)))
+    pinfo = {int(pk): (int(b), int(t), int(z)) for pk, b, t, z in
+             zip(p["p_partkey"][keepp], p["p_brand"][keepp],
+                 p["p_type"][keepp], p["p_size"][keepp])}
+    comments = np.asarray(gen.schema("supplier").dicts["s_comment"],
+                          dtype=object)
+    badc = np.array([re.search("Customer.*Complaints", str(x)) is not None
+                     for x in comments])
+    bad = set(s["s_suppkey"][badc[s["s_comment"]]].tolist())
+    seen = set()
+    for pk, sk in zip(ps["ps_partkey"].tolist(), ps["ps_suppkey"].tolist()):
+        if sk in bad:
+            continue
+        info = pinfo.get(pk)
+        if info is not None:
+            seen.add((info, sk))
+    out: Dict[tuple, int] = {}
+    for info, _sk in seen:
+        out[info] = out.get(info, 0) + 1
+    return out
+
+
+# ------------------------------------------------------------------ Q17 ---
+# Small-quantity-order revenue: correlated AVG rewritten exactly in
+# integers — qty < 0.2*avg(qty)  <=>  5*qty*count < sum(qty) — so the
+# decorrelated join+agg form needs no division and stays bit-exact.
+
+def q17_plan():
+    parts = Project(
+        Filter(Scan("part", ("p_partkey", "p_brand", "p_container")),
+               BoolOp("and", (Cmp("==", Col("p_brand"), Lit("Brand#23")),
+                              Cmp("==", Col("p_container"),
+                                  Lit("MED BOX"))))),
+        (("p_partkey", Col("p_partkey")),))
+    line = Join(Scan("lineitem", ("l_partkey", "l_quantity",
+                                  "l_extendedprice")),
+                parts, ("l_partkey",), ("p_partkey",), how="semi")
+    per_part = Project(
+        Aggregate(Scan("lineitem", ("l_partkey", "l_quantity")),
+                  ("l_partkey",),
+                  (AggSpec("sum", "l_quantity", "qty_sum"),
+                   AggSpec("count_star", None, "qty_n"))),
+        (("pp_partkey", Col("l_partkey")), ("qty_sum", Col("qty_sum")),
+         ("qty_n", Col("qty_n"))))
+    joined = Join(line, per_part, ("l_partkey",), ("pp_partkey",))
+    small = Filter(joined,
+                   Cmp("<", BinOp("*", BinOp("*", Lit(5),
+                                              Col("l_quantity")),
+                                  Col("qty_n")),
+                       Col("qty_sum")))
+    return Aggregate(small, (),
+                     (AggSpec("sum", "l_extendedprice", "sum_price"),))
+
+
+def q17(gen: TPCH, capacity: int = 1 << 17, catalog=None) -> Operator:
+    return _build(gen, q17_plan(), capacity, catalog)
+
+
+def q17_oracle(gen: TPCH) -> int:
+    """sum(l_extendedprice), scale 2, by row loops."""
+    l, p = gen.table("lineitem"), gen.table("part")
+    b = _code(gen, "part", "p_brand", "Brand#23")
+    cont = _code(gen, "part", "p_container", "MED BOX")
+    target = set(p["p_partkey"][(p["p_brand"] == b)
+                                & (p["p_container"] == cont)].tolist())
+    qsum: Dict[int, int] = {}
+    qn: Dict[int, int] = {}
+    for pk, q in zip(l["l_partkey"].tolist(), l["l_quantity"].tolist()):
+        qsum[pk] = qsum.get(pk, 0) + int(q)
+        qn[pk] = qn.get(pk, 0) + 1
+    tot = 0
+    for pk, q, px in zip(l["l_partkey"].tolist(), l["l_quantity"].tolist(),
+                         l["l_extendedprice"].tolist()):
+        if pk in target and 5 * int(q) * qn[pk] < qsum[pk]:
+            tot += int(px)
+    return tot
+
+
+def q17_oracle_columnar(gen: TPCH) -> int:
+    """Vectorized numpy Q17, q17_oracle's sum."""
+    l, p = gen.table("lineitem"), gen.table("part")
+    b = _code(gen, "part", "p_brand", "Brand#23")
+    cont = _code(gen, "part", "p_container", "MED BOX")
+    target = p["p_partkey"][(p["p_brand"] == b) & (p["p_container"] == cont)]
+    pk = l["l_partkey"].astype(np.int64)
+    q = l["l_quantity"].astype(np.int64)
+    qsum = np.zeros(int(pk.max()) + 1 if len(pk) else 0, np.int64)
+    np.add.at(qsum, pk, q)
+    qn = np.bincount(pk, minlength=len(qsum)).astype(np.int64)
+    keep = np.isin(pk, target) & (5 * q * qn[pk] < qsum[pk])
+    return int(l["l_extendedprice"][keep].astype(np.int64).sum())
+
+
+# ------------------------------------------------------------------ Q19 ---
+# Discounted revenue: the big disjunctive (OR-of-ANDs) predicate over a
+# join — one fused filter, no plan-level union.
+
+def q19_plan():
+    line = Filter(
+        Scan("lineitem", ("l_partkey", "l_quantity", "l_extendedprice",
+                          "l_discount", "l_shipmode", "l_shipinstruct")),
+        BoolOp("and", (InList(Col("l_shipmode"), ("AIR", "REG AIR")),
+                       Cmp("==", Col("l_shipinstruct"),
+                           Lit("DELIVER IN PERSON")))))
+    joined = Join(line, Scan("part", ("p_partkey", "p_brand",
+                                      "p_container", "p_size")),
+                  ("l_partkey",), ("p_partkey",))
+
+    def branch(brand, conts, qlo, qhi, smax):
+        return BoolOp("and", (
+            Cmp("==", Col("p_brand"), Lit(brand)),
+            InList(Col("p_container"), conts),
+            Cmp(">=", Col("l_quantity"), Lit(float(qlo), DECIMAL(2))),
+            Cmp("<=", Col("l_quantity"), Lit(float(qhi), DECIMAL(2))),
+            Cmp(">=", Col("p_size"), Lit(1)),
+            Cmp("<=", Col("p_size"), Lit(smax))))
+
+    filt = Filter(joined, BoolOp("or", (
+        branch("Brand#12", ("SM CASE", "SM BOX", "SM PACK", "SM PKG"),
+               1, 11, 5),
+        branch("Brand#23", ("MED BAG", "MED BOX", "MED PKG", "MED PACK"),
+               10, 20, 10),
+        branch("Brand#34", ("LG CASE", "LG BOX", "LG PACK", "LG PKG"),
+               20, 30, 15))))
+    proj = Project(filt, (("rev", _rev_expr()),))
+    return Aggregate(proj, (), (AggSpec("sum", "rev", "revenue"),))
+
+
+def q19(gen: TPCH, capacity: int = 1 << 17, catalog=None) -> Operator:
+    return _build(gen, q19_plan(), capacity, catalog)
+
+
+def q19_oracle(gen: TPCH) -> int:
+    """The revenue sum, scale 4 (vectorized: one pass over lineitem)."""
+    l, p = gen.table("lineitem"), gen.table("part")
+    modes = {_code(gen, "lineitem", "l_shipmode", m)
+             for m in ("AIR", "REG AIR")}
+    instr = _code(gen, "lineitem", "l_shipinstruct", "DELIVER IN PERSON")
+    po = np.argsort(p["p_partkey"])
+    idx = np.searchsorted(p["p_partkey"][po], l["l_partkey"])
+    brand = p["p_brand"][po][idx]
+    cont = p["p_container"][po][idx]
+    size = p["p_size"][po][idx]
+    qty = l["l_quantity"]
+
+    def codes(col, names):
+        return np.asarray([_code(gen, "part", col, nm) for nm in names])
+
+    b12 = _code(gen, "part", "p_brand", "Brand#12")
+    b23 = _code(gen, "part", "p_brand", "Brand#23")
+    b34 = _code(gen, "part", "p_brand", "Brand#34")
+    sm = codes("p_container", ("SM CASE", "SM BOX", "SM PACK", "SM PKG"))
+    med = codes("p_container", ("MED BAG", "MED BOX", "MED PKG",
+                                "MED PACK"))
+    lg = codes("p_container", ("LG CASE", "LG BOX", "LG PACK", "LG PKG"))
+    common = (np.isin(l["l_shipmode"],
+                      np.fromiter(modes, dtype=np.int64))
+              & (l["l_shipinstruct"] == instr))
+    k1 = ((brand == b12) & np.isin(cont, sm)
+          & (qty >= 100) & (qty <= 1100) & (size >= 1) & (size <= 5))
+    k2 = ((brand == b23) & np.isin(cont, med)
+          & (qty >= 1000) & (qty <= 2000) & (size >= 1) & (size <= 10))
+    k3 = ((brand == b34) & np.isin(cont, lg)
+          & (qty >= 2000) & (qty <= 3000) & (size >= 1) & (size <= 15))
+    keep = common & (k1 | k2 | k3)
+    return int((l["l_extendedprice"][keep].astype(np.int64)
+                * (100 - l["l_discount"][keep].astype(np.int64))).sum())
+
+
+QUERIES = {1: q1, 2: q2, 3: q3, 4: q4, 5: q5, 6: q6, 9: q9, 10: q10,
+           12: q12, 14: q14, 15: q15, 16: q16, 17: q17, 18: q18, 19: q19}
+
+# logical-plan constructors, one gen -> Plan signature for all
+PLANS = {
+    1: q1_plan,
+    2: lambda gen: q2_plan(),
+    3: lambda gen: q3_plan(),
+    4: lambda gen: q4_plan(),
+    5: lambda gen: q5_plan(),
+    6: lambda gen: q6_plan(),
+    9: lambda gen: q9_plan(),
+    10: lambda gen: q10_plan(),
+    12: lambda gen: q12_plan(),
+    14: lambda gen: q14_plan(),
+    15: lambda gen: q15_plan(),
+    16: lambda gen: q16_plan(),
+    17: lambda gen: q17_plan(),
+    18: lambda gen: q18_plan(),
+    19: lambda gen: q19_plan(),
+}

@@ -285,3 +285,84 @@ def test_unported_nodes_name_their_roadmap_item(batch, node, item):
     _jb, _js, tb, ts = batch
     with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
         tx.eval_expr(node, tb, ts, {})
+
+
+def _folds():
+    """Float BinOps with a constant operand. Under jax.jit XLA's algebraic
+    simplifier removes the first group, so their subnormal operand lanes
+    pass through unflushed (and -0.0 + 0.0 stays -0.0); the second group
+    keeps its operation, and its flush."""
+    C, L = jx.Col, jx.Lit
+    f, i, d = C("f"), C("i"), C("d")
+    FLOAT = jbatch.FLOAT
+    zero, one = L(0.0), L(1.0)
+    B = jx.BinOp
+    return {
+        # removed: x + 0, 0 + x, x - 0, x * 1, 1 * x, x / 1
+        "f+0.0": B("+", f, zero), "0.0+f": B("+", zero, f),
+        "f-0.0": B("-", f, zero), "f*1.0": B("*", f, one),
+        "1.0*f": B("*", one, f), "f/1.0": B("/", f, one),
+        "f+0": B("+", f, L(0)), "0+f": B("+", L(0), f),
+        "f-0": B("-", f, L(0)), "f*1": B("*", f, L(1)),
+        "1*f": B("*", L(1), f), "f/1": B("/", f, L(1)),
+        # the other zero, a zero divisor (NULL lanes divide by 1), a NULL
+        # literal (zero lanes), constant subtrees, a decimal constant
+        "f+-0.0": B("+", f, L(-0.0)), "-0.0+f": B("+", L(-0.0), f),
+        "f--0.0": B("-", f, L(-0.0)), "f/0.0": B("/", f, zero),
+        "f/0": B("/", f, L(0)), "f+null": B("+", f, L(None, FLOAT)),
+        "null+f": B("+", L(None, FLOAT), f),
+        "f/null": B("/", f, L(None, FLOAT)),
+        "f+cast(0)": B("+", f, jx.Cast(L(0), FLOAT)),
+        "f*(2.0-1.0)": B("*", f, B("-", L(2.0), one)),
+        "f/1.00": B("/", f, L(1.0, jbatch.DECIMAL(2))),
+        "(f*g)+0.0": B("+", B("*", f, C("g")), zero),
+        "(f+0.0)*1.0": B("*", B("+", f, zero), one),
+        # removed into a negation: x * -1, -1 * x, x / -1, -0.0 - x
+        "f*-1.0": B("*", f, L(-1.0)), "-1.0*f": B("*", L(-1.0), f),
+        "f/-1.0": B("/", f, L(-1.0)), "f*-1": B("*", f, L(-1)),
+        "-0.0-f": B("-", L(-0.0), f),
+        "f/-1.00": B("/", f, L(-1.0, jbatch.DECIMAL(2))),
+        # kept, and flushed
+        "0.0-f": B("-", zero, f), "null-f": B("-", L(None, FLOAT), f),
+        "f*2.0": B("*", f, L(2.0)), "f/2.0": B("/", f, L(2.0)),
+        "f+1.0": B("+", f, one), "0.0/f": B("/", zero, f),
+        "1.0/f": B("/", one, f), "f*0.0": B("*", f, zero),
+        "f+g": B("+", f, C("g")), "f*g": B("*", f, C("g")),
+        # an integer or decimal operand: never subnormal either way
+        "i+0.0": B("+", i, zero), "i*-1.0": B("*", i, L(-1.0)),
+        "d/1.0": B("/", d, one),
+    }
+
+
+def _assert_same_bits(want, got, what):
+    """Equal values and validity, and equal sign bits on the lanes that
+    are not NaN (so -0.0 and 0.0 differ)."""
+    assert_same_column(want, got, what)
+    w, g = np.asarray(want.values), got.values.cpu().numpy()
+    real = ~np.isnan(w)
+    np.testing.assert_array_equal(np.signbit(g[real]), np.signbit(w[real]),
+                                  err_msg=what)
+
+
+@pytest.mark.parametrize("name", sorted(_folds()))
+def test_xla_folds_match_jax_under_jit(batch, name):
+    """The forms XLA removes leave their operand's bits as they are, where
+    the port's float arithmetic otherwise flushes subnormals (_ftz)."""
+    jb, js, tb, ts = batch
+    e = _folds()[name]
+    want = jax.jit(lambda b: jx.eval_expr(e, b, js))(jb)
+    got = tx.eval_expr(to_port(e), tb, ts, {})
+    _assert_same_bits(want, got, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(_folds()))
+def test_xla_folds_match_jax_on_card(batch, name):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    jb, js, _tb, ts = batch
+    e = _folds()[name]
+    want = jax.jit(lambda b: jx.eval_expr(e, b, js))(jb)
+    got = tx.eval_expr(to_port(e), port_batch(jb, "cuda"), ts, {})
+    assert got.values.is_cuda
+    _assert_same_bits(want, got, name)

@@ -15,12 +15,13 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 # the modules of the sort-based GROUP BY, the joins, top-K, the
-# expressions and the planner's statistics: imported by name, so a module that goes missing fails here rather than being
+# expressions, DISTINCT and the planner (its statistics and
+# decorrelation): imported by name, so a module that goes missing fails here rather than being
 # skipped by the package walk
 SLICE_MODULES = ["ops.hash", "ops.prefix", "ops.search", "ops.rowmat",
                  "ops.hashtable", "ops.join", "ops.sortjoin", "ops.agg",
-                 "ops.sort", "ops.expr", "exec.operators", "sql.plan",
-                 "sql.stats", "workload.tpch_queries"]
+                 "ops.sort", "ops.expr", "ops.distinct", "exec.operators",
+                 "sql.plan", "sql.stats", "workload.tpch_queries"]
 
 
 def test_port_imports_no_jax_pyarrow_or_jax_package():
@@ -47,7 +48,7 @@ def test_port_imports_no_jax_pyarrow_or_jax_package():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
     n_modules = int(r.stdout.split()[0])
-    assert n_modules >= 22, r.stdout
+    assert n_modules >= 23, r.stdout
 
 
 def test_collect_without_cuda_or_device_raises(monkeypatch):

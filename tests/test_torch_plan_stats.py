@@ -2,10 +2,11 @@
 estimate_cardinality, insert_shrinks; sql/stats.py) and its ShrinkOp
 against the JAX package's.
 
-For the seven ported TPC-H queries at SF 0.01 and SF 1, the port's
-normalize must give the JAX package's plan: the same node kinds, tables,
-columns, predicates, join keys and join types, and each Shrink with the
-same start capacity. The catalogs sample only the first 4 chunks of
+For the fifteen TPC-H queries of the JAX package's PLANS at SF 0.01 and
+SF 1, the port's normalize (Apply decorrelation included) must give the
+JAX package's plan: the same node kinds, tables, columns, predicates,
+join keys and join types, the same helper column names, and each Shrink
+with the same start capacity. The catalogs sample only the first 4 chunks of
 2^14 rows of a table, so SF 1 plans cheaply. ShrinkOp's compaction must
 equal the JAX package's shrink_traceable bit for bit, overflow flag
 included."""
@@ -32,19 +33,23 @@ from cockroach_tpu_torch.workload import tpch as ttpch
 from cockroach_tpu_torch.workload import tpch_queries as tq
 from test_torch_expr import port_batch
 
-QUERIES = {
-    "q1": (lambda g: jq.q1_plan(g), lambda g: tq.q1_plan(g)),
-    "q3": (lambda g: jq.q3_plan(), lambda g: tq.q3_plan()),
-    "q6": (lambda g: jq.q6_plan(), lambda g: tq.q6_plan()),
-    "q9": (lambda g: jq.q9_plan(), lambda g: tq.q9_plan()),
-    "q12": (lambda g: jq.q12_plan(), lambda g: tq.q12_plan()),
-    "q14": (lambda g: jq.q14_plan(), lambda g: tq.q14_plan()),
-    "q18": (lambda g: jq.q18_plan(), lambda g: tq.q18_plan()),
-}
+QUERIES = {f"q{n}": (lambda g, n=n: jq.PLANS[n](g),
+                     lambda g, n=n: tq.PLANS[n](g))
+           for n in sorted(jq.PLANS)}
 
-# start capacities of the JAX package's plans at SF 1
-SF1_SHRINKS = {"q1": [], "q3": [1 << 18], "q6": [], "q9": [1 << 20],
-               "q12": [], "q14": [], "q18": [1 << 14, 1 << 12]}
+# start capacities of the JAX package's plans at SF 1 (Q2's and Q15's
+# shared subplans appear once under each consumer)
+SF1_SHRINKS = {"q1": [], "q2": [1 << 14, 1 << 14, 1 << 12, 1 << 14,
+                                1 << 14, 1 << 12],
+               "q3": [1 << 18], "q4": [], "q5": [1 << 22, 1 << 14, 1 << 12],
+               "q6": [], "q9": [1 << 20], "q10": [1 << 19], "q12": [],
+               "q14": [], "q15": [1 << 12], "q16": [1 << 12],
+               "q17": [1 << 19], "q18": [1 << 14, 1 << 12], "q19": []}
+
+
+def test_port_plans_are_the_jax_packages_fifteen():
+    assert sorted(tq.PLANS) == sorted(jq.PLANS)
+    assert sorted(tq.QUERIES) == sorted(jq.QUERIES)
 
 
 @pytest.fixture(scope="module", params=[0.01, 1])
@@ -108,14 +113,16 @@ def _subplans(p):
         yield from _subplans(k)
 
 
-@pytest.mark.parametrize("name", ["q3", "q9", "q12", "q18"])
+@pytest.mark.parametrize("name", ["q3", "q9", "q12", "q18", "q2", "q5",
+                                  "q16", "q17"])
 def test_estimate_cardinality_matches_jax(catalogs, name):
-    """Every subplan of the pushed-down plan gets the JAX package's
-    estimate, exactly (the same float arithmetic in the same order)."""
+    """Every subplan of the decorrelated, pushed-down plan gets the JAX
+    package's estimate, exactly (the same float arithmetic in the same
+    order)."""
     _sf, jgen, tgen, jcat, tcat = catalogs
     jmake, tmake = QUERIES[name]
-    jp = jplan.push_filters(jmake(jgen), jcat)
-    tp = tplan.push_filters(tmake(tgen), tcat)
+    jp = jplan.push_filters(jplan.decorrelate(jmake(jgen), jcat), jcat)
+    tp = tplan.push_filters(tplan.decorrelate(tmake(tgen), tcat), tcat)
     want = [jplan.estimate_cardinality(s, jcat) for s in _subplans(jp)]
     got = [tplan.estimate_cardinality(s, tcat) for s in _subplans(tp)]
     assert got == want
