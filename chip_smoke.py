@@ -14,19 +14,30 @@ Phases, each printed on lines of its own:
      warp-aggregated, vector or scalar loads), held against the rule of
      ops/cuda_kernels.py dense_sums_routes;
   4. TPC-H Q1 at SF 1, capacity 2^20, through the port's entry points
-     (workload.tpch_queries.q1 -> exec.collect) on CUDA: the result must
-     equal the port's numpy oracle (ints exact, avg float32 within 1e-6
-     relative of the float64 oracle), and each kernel of the path must
-     have launched (dense_sums: once per chunk, 6 times). Prints the cold
-     time and the median warm time of 5 runs; data generation is off the
-     clock;
+     (workload.tpch_queries.q1 -> exec.collect) on CUDA, its scan marked
+     resident before the cold run (the JAX package's bench.py
+     _make_resident): the result must equal the port's numpy oracle
+     (ints exact, avg float32 within 1e-6 relative of the float64
+     oracle), and each kernel of the path must have launched (dense_sums:
+     once per chunk, 6 times, in every run). The 5 warm runs fold the
+     resident image (agg.fold_stacked) with no scan.pack or
+     scan.transfer, and leave the image's checksum as the cold run left
+     it. Then a streaming flow (cache key off; a cold and 3 warm runs)
+     and a fresh plan build, which must borrow the image from the
+     scan-image cache. Prints the cold time, the resident and streaming
+     warm medians, the synchronizing calls of a warm run, the host
+     stages, the image's MiB and the device memory peak; data generation
+     is off the clock;
   5. each kernel timed at the shape the main path gives it, beside its
      plain version, the one-call PyTorch yardstick, its bound and its
      first version's time, and again at 4 x the rows (the streaming rate
      and the fixed cost of a call);
   6. TPC-H Q6, Q3 and Q18 (threshold 300) at SF 1, capacity 2^20, through
      workload.tpch_queries -> exec.collect on CUDA, data generated off the
-     clock: one cold run and 5 warm runs of each built flow, every run
+     clock, every scan resident as in phase 4: one cold run and 5 warm
+     runs of each built flow (no warm run may pack or copy, the images'
+     checksums must not change), a fresh plan build that must borrow
+     every image, and a streaming flow (cache off, 2 runs), every run
      equal to the query's columnar oracle (q6_oracle,
      q3_oracle_columnar, q18_oracle_columnar), row for row. Prints the
      cold time, the median and every warm time, the FlowRestart count of
@@ -34,9 +45,15 @@ Phases, each printed on lines of its own:
      accumulator: one restart on the cold run, none warm — anything else
      fails), the kernel launches of each run (set to 0 just before it and
      read just after), the host stage timers (scan.pack, scan.transfer,
-     join.build, agg.fold, shrink), the synchronizing CUDA calls of one
-     warm run, and the device time of one call of each layer (Q3's join
-     build and probe, Q18's aggregate partial and fold step, its top-K);
+     scan.stack, join.build, agg.fold, shrink) of the cold, a warm and
+     the streaming warm run, the synchronizing CUDA calls of one warm
+     run, the stacked events of the warm runs (agg.fold_stacked,
+     join.build_stacked), the images' MiB, the phase's device memory
+     peak and the scan-image cache's size; Q6 once more with
+     storage.hbm_cache_bytes below one chunk, which must stay streaming
+     and equal its oracle; and the device time of one call of each layer
+     (Q3's join build and probe, Q18's aggregate partial and fold step,
+     its top-K);
   7. TPC-H Q9, Q12 and Q14 at SF 1 in the same way, against
      q9_oracle_columnar, q12_oracle_columnar and q14_oracle_columnar: no
      run may restart (every ShrinkOp's start capacity exceeds its real
@@ -59,7 +76,8 @@ Phases, each printed on lines of its own:
      Q15's LEFT join probes, Q17's per-part GROUP BY partial and fold
      step and Q16's DistinctOp; dense_sums at Q4's and Q5's shapes
      against its plain version, bit for bit, and timed beside its bound
-     as in phase 5. Then one JSON line per query of phases 6, 7 and 8,
+     as in phase 5. Then the whole run's seconds, one JSON line per
+     query (Q1 and phases 6, 7 and 8),
      the JSON line of kernels (dense_sums' launches in the Q1 run, by
      path: Q1, Q12, Q4 and Q5, and its times at Q1's, Q4's and Q5's
      shapes), the card line and, last, the result line.
@@ -88,6 +106,7 @@ import numpy as np
 SF = 1
 CAPACITY = 1 << 20
 WARM_RUNS = 5
+Q1_STREAMING_RUNS = 3
 # H100 SXM, NVIDIA's data sheet: HBM3 rate, and the float32 rate outside
 # the tensor cores (the table has no int64 rate; int64 adds are counted
 # against it)
@@ -395,7 +414,15 @@ PHASE7 = ("q9", "q12", "q14")
 PHASE8 = ("q4", "q17", "q16", "q2", "q15", "q5", "q10", "q19")
 Q18_THRESHOLD = 300  # the spec's
 # host stage timers printed per query (exec/stats.py)
-STAGES = ("scan.pack", "scan.transfer", "join.build", "agg.fold", "shrink")
+STAGES = ("scan.pack", "scan.transfer", "scan.stack", "join.build",
+          "agg.fold", "shrink")
+# the events a warm run of a resident flow must not have, and those that
+# show the stacked fold and build
+STREAMING_EVENTS = ("scan.pack", "scan.transfer")
+STACKED_EVENTS = ("agg.fold_stacked", "join.build_stacked")
+# queries whose warm runs must fold a GROUP BY over a resident image:
+# their aggregate reads MapOp -> ScanOp
+MUST_FOLD_STACKED = ("q1", "q6")
 Q_COLUMNS = {
     "q6": ("revenue",),
     "q3": ("l_orderkey", "revenue", "o_orderdate", "o_shippriority"),
@@ -474,6 +501,66 @@ def feed_pregenerated(flow, gen, capacity: int) -> int:
     return n_scans
 
 
+def scans_of(flow) -> list:
+    from cockroach_tpu_torch.exec.operators import ScanOp, walk_operators
+
+    return [op for op in walk_operators(flow) if isinstance(op, ScanOp)]
+
+
+def make_resident(flow) -> None:
+    """Mark every ScanOp of the flow resident (the JAX package's bench.py
+    _make_resident): its first complete pass pins its image."""
+    for op in scans_of(flow):
+        op.resident = True
+
+
+def make_streaming(flow) -> None:
+    """Turn the scan-image cache off for every ScanOp of the flow, so it
+    packs and copies each run."""
+    for op in scans_of(flow):
+        op.cache_key = None
+
+
+def image_checksums(torch, flow) -> dict:
+    """{scan id: (bytes, a position-weighted int64 sum of the image)} of
+    every scan of the flow that holds an image (two device reductions
+    and one read each, outside any timed run)."""
+    out = {}
+    for op in scans_of(flow):
+        st = op._stacked
+        if st is None:
+            continue
+        words = st.bufs.reshape(-1).view(torch.int64)
+        pos = torch.arange(1, words.numel() + 1, device=words.device)
+        out[id(op)] = (st.bufs.numel(), int((words * pos).sum()),
+                       int(words.sum()))
+    return out
+
+
+def check_warm_events(name: str, run: int, events: dict) -> list:
+    """A warm run of a resident flow packs and copies nothing. -> the
+    stacked events it shows."""
+    bad = {e: events[e] for e in STREAMING_EVENTS if events.get(e)}
+    if bad:
+        raise SystemExit(f"{name} warm run {run}: {bad}, expected no "
+                         f"scan.pack or scan.transfer")
+    shown = sorted(e for e in STACKED_EVENTS if events.get(e))
+    if name in MUST_FOLD_STACKED and "agg.fold_stacked" not in shown:
+        raise SystemExit(f"{name} warm run {run}: no agg.fold_stacked")
+    return shown
+
+
+def check_launches(name, gen, launches, restarts) -> None:
+    """Each kernel launched as PATH_KERNELS says, a pass per restart."""
+    want_launches = PATH_KERNELS.get(name, {})
+    for k, n in launches.items():
+        want = want_launches[k](gen) if k in want_launches else 0
+        if n != want * (1 + restarts):
+            raise SystemExit(f"{name}: {k} launched {n} times in a run "
+                             f"with {restarts} restarts, expected {want} "
+                             f"a pass")
+
+
 def query_rows(name: str, res) -> list:
     """A result's rows as tuples of Python ints, after checking that no
     column holds a NULL."""
@@ -546,7 +633,8 @@ def query_flows(gen) -> dict:
 
 def timed_collect(torch, stats, collect, flow, count_syncs: bool = False):
     """One run of the flow: (result, seconds, restarts, host stage
-    seconds, host syncs or None, kernel launches). With count_syncs,
+    seconds, host syncs or None, kernel launches, every stage's event
+    count). With count_syncs,
     every synchronizing CUDA call of the run is counted
     (torch.cuda.set_sync_debug_mode). Each kernel's launch count is set
     to 0 just before the run and read just after."""
@@ -573,8 +661,9 @@ def timed_collect(torch, stats, collect, flow, count_syncs: bool = False):
              if count_syncs else None)
     restart = col.stages.get("flow.restart")
     stages = {s: col.stages[s].seconds for s in STAGES if s in col.stages}
+    events = {n: st.events for n, st in col.stages.items()}
     return (res, dt, (restart.events if restart else 0), stages, syncs,
-            launches)
+            launches, events)
 
 
 def layer_times(torch, flows, dev) -> dict:
@@ -700,12 +789,18 @@ def trace_query(torch, collect, flow, path_stem: str):
 
 
 def run_query_phase(torch, gen, phase: int, names):
-    """Queries at SF 1 through the port on CUDA: a cold and WARM_RUNS
-    warm runs of each built flow, every run equal to the query's columnar
-    oracle, the restarts and kernel launches of every run held to
-    COLD_RESTARTS and PATH_KERNELS. -> ({name: JSON record}, flows)."""
+    """Queries at SF 1 through the port on CUDA: every ScanOp of each
+    built flow marked resident, then a cold and WARM_RUNS warm runs, every
+    run equal to the query's columnar oracle, the restarts and kernel
+    launches of every run held to COLD_RESTARTS and PATH_KERNELS, no warm
+    run packing or copying, and the resident images' checksums the same
+    after the warm runs as after the cold run. Then one fresh plan build
+    from the entry point (not marked resident), which must borrow every
+    image from the scan-image cache, and one streaming flow (cache off),
+    a cold and a warm run. -> ({name: JSON record}, flows)."""
     from cockroach_tpu_torch.exec import stats
     from cockroach_tpu_torch.exec.operators import collect
+    from cockroach_tpu_torch.exec.scan_cache import scan_image_cache
 
     t0 = time.perf_counter()
     for t in PHASE_TABLES[phase]:
@@ -715,58 +810,144 @@ def run_query_phase(torch, gen, phase: int, names):
     oracles = {n: query_oracle(n, gen) for n in names}
     fed = {n: feed_pregenerated(flows[n], gen, CAPACITY) for n in names}
     print(f"[{phase}] {', '.join(n.upper() for n in names)} at SF {SF}, "
-          f"capacity {CAPACITY} (datagen + columnar oracles "
-          f"{time.perf_counter() - t0:.2f} s; scans fed {fed})", flush=True)
+          f"capacity {CAPACITY}, every scan resident (datagen + columnar "
+          f"oracles {time.perf_counter() - t0:.2f} s; scans fed {fed})",
+          flush=True)
+    torch.cuda.reset_peak_memory_stats()
+
+    def checked_run(name, flow, label, count_syncs=False):
+        out = timed_collect(torch, stats, collect, flow,
+                            count_syncs=count_syncs)
+        rows = query_rows(name, out[0])
+        if rows != oracles[name]:
+            raise SystemExit(f"{name} {label}: {rows[:3]}... differs from "
+                             f"its columnar oracle {oracles[name][:3]}...")
+        check_launches(name, gen, out[5], out[2])
+        return out
+
     records = {}
     for name in names:
         flow = flows[name]
-        runs, restarts, stage_runs, launch_runs = [], [], [], []
+        make_resident(flow)
+        runs, restarts, stage_runs, launch_runs, stacked = [], [], [], [], []
         for i in range(1 + WARM_RUNS):
-            res, dt, n_restarts, stages, _, launches = timed_collect(
-                torch, stats, collect, flow)
-            rows = query_rows(name, res)
-            if rows != oracles[name]:
-                raise SystemExit(f"{name} run {i}: {rows[:3]}... differs "
-                                 f"from its columnar oracle "
-                                 f"{oracles[name][:3]}...")
+            _res, dt, n_restarts, stages, _, launches, events = checked_run(
+                name, flow, f"run {i}")
+            if i == 0:
+                sums = image_checksums(torch, flow)
+                image_mib = sum(n for n, _a, _b in sums.values()) / 2 ** 20
+            else:
+                stacked.append(check_warm_events(name, i, events))
             runs.append(dt)
             restarts.append(n_restarts)
             stage_runs.append(stages)
             launch_runs.append(launches)
-        _res, _dt, _r, _s, syncs, _l = timed_collect(
-            torch, stats, collect, flow, count_syncs=True)
+        _res, _dt, _r, _s, syncs, _l, ev = checked_run(
+            name, flow, "sync-counted run", count_syncs=True)
+        check_warm_events(name, WARM_RUNS + 1, ev)
+        if image_checksums(torch, flow) != sums:
+            raise SystemExit(f"{name}: a resident image changed during the "
+                             f"warm runs")
         cold, warm = runs[0], runs[1:]
         warm_s = statistics.median(warm)
         want_cold = COLD_RESTARTS.get(name, 0)
         if restarts[0] != want_cold or any(restarts[1:]):
             raise SystemExit(f"{name}: restarts {restarts}, expected "
                              f"{want_cold} on the cold run and none warm")
-        want_launches = PATH_KERNELS.get(name, {})
-        for k, counts in ((k, [lr[k] for lr in launch_runs])
-                          for k in launch_runs[0]):
-            want = want_launches[k](gen) if k in want_launches else 0
-            # a cold run that restarts runs its flow twice
-            if any(c != want * (1 + r) for c, r in zip(counts, restarts)):
-                raise SystemExit(f"{name}: {k} launched {counts} times per "
-                                 f"run, expected {want} a pass")
+        # a fresh plan build from the entry point borrows every image
+        fresh = builders[name]()
+        feed_pregenerated(fresh, gen, CAPACITY)
+        _res, fresh_s, fresh_r, _s, _y, _l, ev = checked_run(
+            name, fresh, "fresh plan build")
+        if ev.get("scan.pack") or ev.get("scan.cache_hit", 0) < 1:
+            raise SystemExit(f"{name} fresh plan build: scan.pack "
+                             f"{ev.get('scan.pack')}, scan.cache_hit "
+                             f"{ev.get('scan.cache_hit')}: expected every "
+                             f"image borrowed")
+        # the streaming path: a fresh flow with the cache off
+        streaming = builders[name]()
+        feed_pregenerated(streaming, gen, CAPACITY)
+        make_streaming(streaming)
+        stream_runs = []
+        for i in range(2):
+            _res, dt, _r, st, _y, _l, ev = checked_run(
+                name, streaming, f"streaming run {i}")
+            if not ev.get("scan.pack"):
+                raise SystemExit(f"{name} streaming run {i}: no scan.pack")
+            stream_runs.append((dt, st))
         print(f"  {name}: {len(oracles[name])} rows match the columnar "
-              f"oracle in all {len(runs)} runs; cold {cold:.4f} s, warm "
-              f"median {warm_s:.4f} s of {[round(w, 4) for w in warm]}; "
-              f"restarts per run {restarts}; kernel launches per run "
-              f"{launch_runs[-1]}; synchronizing CUDA calls in one warm "
-              f"run {syncs}", flush=True)
-        for label, st in (("cold", stage_runs[0]), ("last warm",
-                                                    stage_runs[-1])):
+              f"oracle in all {len(runs)} resident runs, the fresh plan "
+              f"build and 2 streaming runs; cold {cold:.4f} s, resident "
+              f"warm median {warm_s:.4f} s of {[round(w, 4) for w in warm]},"
+              f" streaming warm {stream_runs[1][0]:.4f} s, fresh plan build "
+              f"{fresh_s:.4f} s ({fresh_r} restarts); restarts per run "
+              f"{restarts}; kernel launches per run {launch_runs[-1]}; "
+              f"synchronizing CUDA calls in one warm run {syncs}; images "
+              f"{image_mib:.1f} MiB in {len(sums)} scans, unchanged; warm "
+              f"runs show {stacked[-1] or 'no stacked events'}", flush=True)
+        for label, st in (("cold", stage_runs[0]),
+                          ("last warm", stage_runs[-1]),
+                          ("streaming warm", stream_runs[1][1])):
             print(f"  {name} host stages, {label} run: "
                   + ", ".join(f"{s} {st[s] * 1e3:.2f} ms" for s in STAGES
                               if s in st), flush=True)
         records[name] = {"sf": SF, "capacity": CAPACITY, "cold_s": cold,
                          "warm_s": warm_s, "warm_runs_s": warm,
+                         "streaming_warm_s": stream_runs[1][0],
+                         "streaming_cold_s": stream_runs[0][0],
+                         "fresh_build_s": fresh_s,
                          "restarts": restarts,
                          "kernel_launches": launch_runs[-1],
                          "host_stages_warm_s": stage_runs[-1],
-                         "host_syncs_warm": syncs}
+                         "host_stages_cold_s": stage_runs[0],
+                         "host_stages_streaming_s": stream_runs[1][1],
+                         "host_syncs_warm": syncs, "image_mib": image_mib,
+                         "stacked_events_warm": stacked[-1]}
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  phase {phase}: device memory peak {peak / 2 ** 20:.1f} MiB; "
+          f"scan-image cache {scan_image_cache().nbytes / 2 ** 20:.1f} MiB "
+          f"in {len(scan_image_cache())} images", flush=True)
     return records, flows
+
+
+def budget_exhausted_run(torch, gen) -> None:
+    """Q6 with storage.hbm_cache_bytes below one chunk and the cache off:
+    its scan stays streaming-only (pins nothing, packs every chunk on
+    both runs) and equals its oracle."""
+    from cockroach_tpu_torch.exec import operators as ops
+    from cockroach_tpu_torch.exec import stats
+    from cockroach_tpu_torch.util.settings import HBM_CACHE_BUDGET, Settings
+
+    flow = query_flows(gen)["q6"]()
+    feed_pregenerated(flow, gen, CAPACITY)
+    make_resident(flow)
+    make_streaming(flow)
+    (scan,) = scans_of(flow)
+    want = query_oracle("q6", gen)
+    settings, old_mon = Settings(), ops._hbm_cache_monitor
+    old_budget = settings.get(HBM_CACHE_BUDGET)
+    settings.set(HBM_CACHE_BUDGET, scan._nbytes - 1)
+    ops._hbm_cache_monitor = None
+    try:
+        for i in range(2):
+            res, dt, _r, _s, _y, _l, ev = timed_collect(
+                torch, stats, ops.collect, flow)
+            if query_rows("q6", res) != want:
+                raise SystemExit(f"q6 over budget, run {i}: differs from "
+                                 f"its oracle")
+            n_chunks = -(-gen.num_rows("lineitem") // CAPACITY)
+            if ev.get("scan.pack") != n_chunks or scan._stacked is not None:
+                raise SystemExit(f"q6 over budget, run {i}: scan.pack "
+                                 f"{ev.get('scan.pack')} of {n_chunks}, "
+                                 f"pinned {scan._stacked is not None}")
+        used = ops.hbm_cache_monitor().used
+    finally:
+        settings.set(HBM_CACHE_BUDGET, old_budget)
+        ops._hbm_cache_monitor = old_mon
+    print(f"  q6 with storage.hbm_cache_bytes {scan._nbytes - 1} (below one "
+          f"chunk): streaming-only, matches its oracle in 2 runs, packing "
+          f"{n_chunks} chunks each, {used} bytes pinned; last run "
+          f"{dt:.4f} s", flush=True)
 
 
 def profile_queries(torch, records, flows, profile_dir) -> None:
@@ -801,6 +982,7 @@ def run_phase6(torch, gen, dev, profile_dir):
     """Q6, Q3 and Q18 at SF 1 through the port on CUDA. -> {name: JSON
     record}."""
     records, flows = run_query_phase(torch, gen, 6, PHASE6)
+    budget_exhausted_run(torch, gen)
     add_layers(records, layer_times(torch, flows, dev))
     if profile_dir:
         profile_queries(torch, records, flows, profile_dir)
@@ -904,24 +1086,138 @@ def run_phase8(torch, ck, gen, dev, flush, profile_dir):
     return records, worst, shapes
 
 
+def run_phase4(torch, gen):
+    """Q1 at SF 1 through the port on CUDA, its scan resident: a cold
+    run and WARM_RUNS warm runs (equal to q1_oracle, dense_sums once
+    per chunk, no pack or copy when warm, the image unchanged), the
+    synchronizing calls of a warm run, a streaming flow (cache off)
+    with Q1_STREAMING_RUNS warm runs, and a fresh plan build that
+    borrows the image. -> (flow, its JSON record, the cold run's
+    kernel launches)."""
+    from cockroach_tpu_torch.exec import stats
+    from cockroach_tpu_torch.exec.operators import collect
+    from cockroach_tpu_torch.workload.tpch_queries import q1, q1_oracle
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    table = gen.table("lineitem")
+    flow = q1(gen, CAPACITY)
+    (scan,) = scans_of(flow)
+    cols = scan.schema.names()
+    n_rows = gen.num_rows("lineitem")
+    chunks = [{c: table[c][a:a + CAPACITY] for c in cols}
+              for a in range(0, n_rows, CAPACITY)]
+    scan._chunks = lambda: iter(chunks)  # data generation off the clock
+    oracle = q1_oracle(gen)
+    print(f"[4] Q1 SF {SF}: {n_rows} lineitem rows in {len(chunks)} chunks "
+          f"of {CAPACITY} (datagen + oracle {time.perf_counter() - t0:.2f} s)",
+          flush=True)
+
+    # the JAX package's warm headline reads resident scans (bench.py
+    # _make_resident): the cold run pins the image, warm runs fold it
+    make_resident(flow)
+    res, cold, _r, cold_stages, _y, launches, _e = timed_collect(
+        torch, stats, collect, flow)
+    rf_names = gen.schema("lineitem").dicts["l_returnflag"]
+    ls_names = gen.schema("lineitem").dicts["l_linestatus"]
+    check_q1(res, oracle, rf_names, ls_names)
+    if launches["dense_sums"] != len(chunks):
+        raise SystemExit(f"dense_sums launched {launches['dense_sums']} "
+                         f"times on the main path, expected {len(chunks)}")
+    sums = image_checksums(torch, flow)
+
+    def same_as_cold(label, again):
+        for c in res:
+            if not np.array_equal(np.asarray(again[c]), np.asarray(res[c])):
+                raise SystemExit(f"Q1 {label} differs in {c}")
+
+    warm, warm_launches = [], []
+    for i in range(WARM_RUNS):
+        again, dt, _r, warm_stages, _y, wl, ev = timed_collect(
+            torch, stats, collect, flow)
+        same_as_cold(f"warm run {i}", again)
+        shown = check_warm_events("q1", i + 1, ev)
+        warm.append(dt)
+        warm_launches.append(wl["dense_sums"])
+    if any(n != len(chunks) for n in warm_launches):
+        raise SystemExit(f"dense_sums launched {warm_launches} times in the "
+                         f"warm runs, expected {len(chunks)} each")
+    if image_checksums(torch, flow) != sums:
+        raise SystemExit("Q1's resident image changed during the warm runs")
+    warm_s = statistics.median(warm)
+    _res, _dt, _r, _s, q1_syncs, _l, _e = timed_collect(
+        torch, stats, collect, flow, count_syncs=True)
+    # the streaming path: a second flow with its cache key off, 1 cold
+    # and Q1_STREAMING_RUNS warm runs
+    streaming = q1(gen, CAPACITY)
+    make_streaming(streaming)
+    (s_scan,) = scans_of(streaming)
+    s_scan._chunks = lambda: iter(chunks)
+    stream_warm = []
+    for i in range(1 + Q1_STREAMING_RUNS):
+        again, dt, _r, stream_stages, _y, _l, ev = timed_collect(
+            torch, stats, collect, streaming)
+        same_as_cold(f"streaming run {i}", again)
+        if ev.get("scan.pack") != len(chunks):
+            raise SystemExit(f"Q1 streaming run {i}: scan.pack "
+                             f"{ev.get('scan.pack')}")
+        if i:
+            stream_warm.append(dt)
+    stream_s = statistics.median(stream_warm)
+    # a fresh plan build from the entry point borrows the image
+    fresh = q1(gen, CAPACITY)
+    (f_scan,) = scans_of(fresh)
+    f_scan._chunks = lambda: iter(chunks)
+    again, fresh_s, _r, _s, _y, _l, ev = timed_collect(torch, stats,
+                                                       collect, fresh)
+    same_as_cold("fresh plan build", again)
+    if ev.get("scan.pack") or ev.get("scan.cache_hit", 0) < 1:
+        raise SystemExit(f"Q1 fresh plan build: {ev}")
+    print(f"  result matches q1_oracle: {len(res['count_order'])} groups, "
+          f"launches {launches}", flush=True)
+    print(f"  cold {cold:.4f} s; resident warm median {warm_s:.4f} s of "
+          f"{[round(w, 4) for w in warm]} ({n_rows / warm_s:,.0f} rows/s); "
+          f"streaming warm median {stream_s:.4f} s of "
+          f"{[round(w, 4) for w in stream_warm]}; fresh plan build "
+          f"{fresh_s:.4f} s (borrows the image); warm runs show {shown}; "
+          f"synchronizing CUDA calls in one warm run {q1_syncs}; image "
+          f"{sum(n for n, _a, _b in sums.values()) / 2 ** 20:.1f} MiB, "
+          f"unchanged; device memory peak "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 20:.1f} MiB",
+          flush=True)
+    for label, st in (("cold", cold_stages), ("last warm", warm_stages),
+                      ("streaming warm", stream_stages)):
+        print(f"  q1 host stages, {label} run: "
+              + ", ".join(f"{x} {st[x] * 1e3:.2f} ms" for x in STAGES
+                          if x in st), flush=True)
+    record = {"sf": SF, "capacity": CAPACITY, "cold_s": cold,
+              "warm_s": warm_s, "warm_runs_s": warm,
+              "streaming_warm_s": stream_s,
+              "streaming_warm_runs_s": stream_warm,
+              "fresh_build_s": fresh_s, "host_syncs_warm": q1_syncs,
+              "host_stages_cold_s": cold_stages,
+              "host_stages_warm_s": warm_stages,
+              "host_stages_streaming_s": stream_stages}
+    return flow, record, launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", metavar="DIR",
                     help="trace one more run of each query and write "
                     "their kernel tables")
     args = ap.parse_args()
+    t_start = time.perf_counter()
 
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
-    from cockroach_tpu_torch.exec import stats
-    from cockroach_tpu_torch.exec.operators import ScanOp, collect
+    from cockroach_tpu_torch.exec.operators import collect
     from cockroach_tpu_torch.ops import agg
     from cockroach_tpu_torch.ops import cuda_kernels as ck
     from cockroach_tpu_torch.workload import tpch
-    from cockroach_tpu_torch.workload.tpch_queries import q1, q1_oracle
 
     # ---- 1. device
     dev = torch.device("cuda")
@@ -958,58 +1254,8 @@ def main() -> int:
     worst = sweep_dense_sums(torch, ck, dev)
 
     # ---- 4. the main path: Q1 SF 1 through the port on CUDA
-    t0 = time.perf_counter()
     gen = tpch.TPCH(sf=SF)
-    table = gen.table("lineitem")
-    flow = q1(gen, CAPACITY)
-    scan = flow
-    while not isinstance(scan, ScanOp):
-        scan = scan.child
-    cols = scan.schema.names()
-    n_rows = gen.num_rows("lineitem")
-    chunks = [{c: table[c][a:a + CAPACITY] for c in cols}
-              for a in range(0, n_rows, CAPACITY)]
-    scan._chunks = lambda: iter(chunks)  # data generation off the clock
-    oracle = q1_oracle(gen)
-    print(f"[4] Q1 SF {SF}: {n_rows} lineitem rows in {len(chunks)} chunks "
-          f"of {CAPACITY} (datagen + oracle {time.perf_counter() - t0:.2f} s)",
-          flush=True)
-
-    for k in ck.KERNELS:
-        k.launches = 0
-    t0 = time.perf_counter()
-    res = collect(flow)
-    torch.cuda.synchronize()
-    cold = time.perf_counter() - t0
-    launches = {k.source.stem: k.launches for k in ck.KERNELS}
-    rf_names = gen.schema("lineitem").dicts["l_returnflag"]
-    ls_names = gen.schema("lineitem").dicts["l_linestatus"]
-    check_q1(res, oracle, rf_names, ls_names)
-    if launches["dense_sums"] != len(chunks):
-        raise SystemExit(f"dense_sums launched {launches['dense_sums']} "
-                         f"times on the main path, expected {len(chunks)}")
-    warm = []
-    for _ in range(WARM_RUNS):
-        t0 = time.perf_counter()
-        again = collect(flow)
-        torch.cuda.synchronize()
-        warm.append(time.perf_counter() - t0)
-        for c in res:
-            if not np.array_equal(np.asarray(again[c]), np.asarray(res[c])):
-                raise SystemExit(f"Q1 warm run differs in {c}")
-    warm_s = statistics.median(warm)
-    print(f"  result matches q1_oracle: {len(res['count_order'])} groups, "
-          f"launches {launches}", flush=True)
-    print(f"  cold {cold:.4f} s; warm median {warm_s:.4f} s of "
-          f"{[round(w, 4) for w in warm]} ({n_rows / warm_s:,.0f} rows/s)",
-          flush=True)
-    # host-side stage times of one more run (device work: enqueue time)
-    col = stats.enable()
-    collect(flow)
-    torch.cuda.synchronize()
-    stats.disable()
-    for line in col.report().splitlines():
-        print("  " + line)
+    flow, q1_record, launches = run_phase4(torch, gen)
 
     # ---- 5. kernels at the main path's shapes
     agg_op = flow.child
@@ -1109,9 +1355,8 @@ def main() -> int:
         "library_ms": library_ms,
         "at_shapes": {"q1": q1_shape, **k1_shapes},
     }]
-    print(json.dumps({"q1": {"sf": SF, "capacity": CAPACITY,
-                             "cold_s": cold, "warm_s": warm_s,
-                             "warm_runs_s": warm}}))
+    print(f"[9] whole run {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(json.dumps({"q1": q1_record}))
     for name in PHASE6 + PHASE7 + PHASE8:
         print(json.dumps({name: query_records[name]}))
     print(json.dumps({"kernels": kernels}))

@@ -138,3 +138,45 @@ def make_unpack(schema: Schema, capacity: int
         return Batch(cols, sel, length)
 
     return unpack
+
+
+def make_flat_unpack(schema: Schema, capacity: int
+                     ) -> Callable[[torch.Tensor, torch.Tensor], Batch]:
+    """(bufs: (N, nbytes) uint8 stack of packed chunks on the device,
+    ms: (N,) int32 live rows per chunk on the same device) -> ONE flat
+    Batch of N x capacity lanes, chunk i in lanes [i*capacity,
+    (i+1)*capacity). Each column is the strided 2-D slice of its byte
+    range across the stack, viewed as the wire dtype and widened; a lane
+    is dead when its index within its chunk is >= ms[i]. No host read of
+    ms."""
+    layout, _total = pack_layout(schema, capacity)
+    device_dt = {f.name: f.type.dtype for f in schema}
+
+    def unpack(bufs: torch.Tensor, ms: torch.Tensor) -> Batch:
+        n = bufs.shape[0]
+        cols = {}
+        valids = {}
+        for name, dt, off, nbytes in layout:
+            raw = bufs[:, off:off + nbytes]
+            if name.endswith("__valid"):
+                valids[name[:-len("__valid")]] = raw.reshape(-1) != 0
+                continue
+            tdt = _TORCH_OF_NP[dt]
+            if tdt == torch.bool:
+                vals = raw.reshape(-1) != 0
+            else:
+                vals = raw.view(tdt).reshape(-1)
+            lanes = nbytes // (capacity * dt.itemsize)
+            if lanes > 1:  # VECTOR: (N * capacity, d)
+                vals = vals.reshape(n * capacity, lanes)
+            want = device_dt[name]
+            if vals.dtype != want:
+                vals = vals.to(want)
+            cols[name] = Column(vals)
+        lane = torch.arange(capacity, dtype=torch.int32, device=bufs.device)
+        sel = (lane[None, :] < ms[:, None]).reshape(-1)
+        for name, v in valids.items():
+            cols[name] = Column(cols[name].values, v & sel)
+        return Batch(cols, sel, ms.sum(dtype=torch.int32))
+
+    return unpack

@@ -15,20 +15,31 @@ OR-ed across batches and read once at the end of the stream; a raised
 flag ends the stream with FlowRestart, and `run_flow` widens the
 operator and reruns the flow.
 
+A resident ScanOp stacks its packed chunks into one device image after
+its first complete pass, shared across plan builds through
+exec/scan_cache.py. A HashAggOp over such a scan folds its chunks as it
+folds a stream (`agg.fold_stacked`); a JoinOp builds from a whole image
+of several chunks in one pass (`join.build_stacked`).
+
 Not ported yet (ROADMAP.md queue 1): the range-dense GROUP BY, the grace
 (out-of-core) paths of HashAggOp and JoinOp, the external sort, the fused
-runner, the resident scan and stacked fold.
+runner, and `_read_ahead`, which only the grace join's replay uses.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
+import contextlib
+from typing import (
+    Callable, Dict, Iterator, List, NamedTuple, Optional, Sequence, Tuple,
+)
 
 import numpy as np
 import torch
 
 from cockroach_tpu_torch import resolve_device
-from cockroach_tpu_torch.coldata.arrow import make_unpack, pack_into, pack_layout
+from cockroach_tpu_torch.coldata.arrow import (
+    make_flat_unpack, make_unpack, pack_into, pack_layout,
+)
 from cockroach_tpu_torch.coldata.batch import (
     BOOL, Batch, ColType, Column, Field, FLOAT, INT, Kind, Schema,
     concat_batches, mask_padding,
@@ -42,7 +53,9 @@ from cockroach_tpu_torch.ops.expr import (
     Col, decimal_unscale, eval_expr, filter_mask,
 )
 from cockroach_tpu_torch.ops.sort import SortKey, sort_batch, top_k_batch
-from cockroach_tpu_torch.util.settings import WORKMEM, Settings
+from cockroach_tpu_torch.util.settings import (
+    HBM_CACHE_BUDGET, WORKMEM, Settings,
+)
 
 
 class FlowRestart(Exception):
@@ -82,6 +95,15 @@ def _grow_to(b: Batch, cap: int) -> Batch:
     return Batch(mask_padding(cols, sel), sel, b.length)
 
 
+def _repack_build(merged: Batch, cap_sum: int) -> Batch:
+    """A join's compacted build side (batches whose capacities sum to
+    cap_sum) at capacity pow2(cap_sum): the capacity comes from the batch
+    capacities (a sync-free bound on the live rows); the lengths stay on
+    the device."""
+    cap = _pow2_at_least(max(cap_sum, 1))
+    return _grow_to(merged, cap) if cap > merged.capacity else merged
+
+
 class Operator:
     """Base: a node in the flow tree producing a stream of device Batches."""
 
@@ -91,27 +113,275 @@ class Operator:
         raise NotImplementedError
 
 
+# ----------------------------------------------------------------- prefetch
+
+def _prefetch(it: Iterator, device: torch.device, depth: int = 4
+              ) -> Iterator:
+    """Producer-thread prefetch: the host packs the next pieces and starts
+    their copies to the device on a background thread while the consumer
+    enqueues its kernels.
+
+    - Closing this generator early (LIMIT, an empty build side) stops the
+      producer and closes the source iterator before the close returns.
+    - The producer's exception is raised in the consumer.
+    - A stopped flow_stopper() refuses the work: the consumer raises
+      StopperStopped instead of seeing an empty stream.
+    - On CUDA the producer targets `device` explicitly and issues its
+      copies on the consumer's current stream, so every copy is ordered
+      before the kernels that read it; each piece's pinned host buffer is
+      fresh, and the caching host allocator keeps it until its copy has
+      run.
+    - The producer reports its stages into the consumer's per-query
+      stats collection.
+
+    Not ported yet: the cancel checkpoint of the consumer's poll and the
+    trace carrier, which wait for util/cancel.py and util/tracing.py
+    (ROADMAP.md queue 1, item 8)."""
+    import queue as _queue
+    import threading
+
+    from cockroach_tpu_torch.util.stop import StopperStopped
+
+    q: "_queue.Queue" = _queue.Queue(maxsize=depth)
+    _END = object()
+    err: list = []
+    stop = threading.Event()
+    col = stats.query_active()
+    stream = (torch.cuda.current_stream(device) if device.type == "cuda"
+              else None)
+
+    def halted():
+        return stop.is_set() or flow_stopper().should_stop
+
+    def produce():
+        try:
+            for item in it:
+                while not halted():
+                    try:
+                        q.put(item, timeout=0.1)
+                        break
+                    except _queue.Full:
+                        continue
+                if halted():
+                    break
+        except BaseException as e:  # propagate to the consumer
+            err.append(e)
+        finally:
+            if halted():
+                close = getattr(it, "close", None)
+                if close is not None:
+                    close()
+            while True:
+                try:
+                    q.put(_END, timeout=0.1)
+                    break
+                except _queue.Full:
+                    if halted():
+                        break
+
+    def produce_tracked():
+        try:
+            with flow_stopper().task("scan-prefetch"), \
+                    stats.query_stats(col) if col is not None \
+                    else contextlib.nullcontext():
+                if stream is None:
+                    produce()
+                    return
+                with torch.cuda.device(device), torch.cuda.stream(stream):
+                    assert torch.cuda.current_stream(device) == stream
+                    produce()
+        except StopperStopped as e:
+            # refused after stop(): deliver the error and the end of the
+            # stream, so the consumer raises instead of blocking
+            err.append(e)
+            q.put(_END)
+
+    t = threading.Thread(target=produce_tracked, daemon=True)
+    t.start()
+    try:
+        while True:
+            item = q.get()
+            if item is _END:
+                if err:
+                    raise err[0]
+                return
+            yield item
+    finally:
+        # stop the producer and wait for it: a put blocked on the full
+        # queue is freed by draining it, and the source iterator is
+        # closed before the consumer goes on
+        stop.set()
+        while t.is_alive():
+            try:
+                q.get(timeout=0.01)
+            except _queue.Empty:
+                pass
+
+
+_flow_stopper = None
+
+
+def flow_stopper():
+    """Process stopper owning the flow runtime's background threads
+    (prefetch producers); `flow_stopper().stop()` drains them."""
+    global _flow_stopper
+    if _flow_stopper is None:
+        from cockroach_tpu_torch.util.stop import Stopper
+
+        _flow_stopper = Stopper()
+    return _flow_stopper
+
+
 # --------------------------------------------------------------------- scan
+
+_hbm_cache_monitor = None
+
+
+def hbm_cache_monitor():
+    """Process-wide monitor of the device memory resident scans hold,
+    budgeted by `storage.hbm_cache_bytes` (the analog of the reference's
+    block cache sizing, util/mon/bytes_usage.go:174)."""
+    global _hbm_cache_monitor
+    if _hbm_cache_monitor is None:
+        from cockroach_tpu_torch.util.mon import BytesMonitor
+
+        _hbm_cache_monitor = BytesMonitor(
+            "hbm-table-cache", budget=Settings().get(HBM_CACHE_BUDGET))
+    return _hbm_cache_monitor
+
+
+def _device_key(device: torch.device) -> tuple:
+    """The device an image lives on, with its index resolved."""
+    index = device.index
+    if index is None and device.type == "cuda":
+        index = torch.cuda.current_device()
+    return (device.type, index)
+
+
+class ScanImage(NamedTuple):
+    """A scan's chunks stacked on one device: `bufs` (N, nbytes) uint8,
+    `ms` (N,) int32 live rows per chunk on the device, and the same
+    counts as host ints (`ms_host`)."""
+
+    bufs: torch.Tensor
+    ms: torch.Tensor
+    ms_host: Tuple[int, ...]
+
 
 class ScanOp(Operator):
     """Source from host chunks (numpy column dicts).
 
     Each capacity-sized piece of a chunk is packed (narrow Field.wire
     dtypes) into ONE host buffer, pinned when the target is a CUDA device,
-    and crosses to the device in one non-blocking copy; the unpack views
-    each column's byte range and widens it there."""
+    and crosses to the device in one non-blocking copy, on a prefetch
+    thread (_prefetch); the unpack views each column's byte range and
+    widens it there.
+
+    With `resident=True` the first COMPLETE pass stacks its device
+    buffers into one ScanImage, accounted against `monitor` (by default
+    hbm_cache_monitor()), and later passes read its chunks, so warm runs
+    never pack or copy; a consumer that stops early (LIMIT) pins
+    nothing. When the budget runs out the scan stays streaming-only, on
+    the same device. With `cache_key` set (Catalog.scan_cache_key) the
+    image is shared through the process-wide ScanImageCache
+    (exec/scan_cache.py), which then owns its accounting: a fresh plan
+    build over the same data borrows it with no pack and no copy. The
+    port's ScanOp learns its device in batches(), so it appends the
+    device to the key; an image is never borrowed on another device, and
+    a run on another device drops this op's image and streams again.
+
+    The unpacked columns are views of the image where the wire dtype is
+    the device dtype: nothing downstream writes a column in place."""
 
     def __init__(self, schema: Schema,
                  chunks: Callable[[], Iterator[Dict[str, np.ndarray]]],
-                 capacity: int, table: Optional[str] = None):
+                 capacity: int, resident: bool = False, monitor=None,
+                 cache_key: Optional[tuple] = None,
+                 table: Optional[str] = None):
         self.schema = schema
         self._chunks = chunks
         self.capacity = capacity
+        self.resident = resident
+        self.cache_key = cache_key
         self.table = table
+        self._monitor = monitor
+        self._device: Optional[torch.device] = None  # where the image is
+        self._stacked: Optional[ScanImage] = None
+        self._stacked_account = None
         self._unpack = make_unpack(schema, capacity)
+        self._flat_unpack = make_flat_unpack(schema, capacity)
         self._nbytes = pack_layout(schema, capacity)[1]
 
-    def batches(self, device: torch.device) -> Iterator[Batch]:
+    def _image_key(self, device: torch.device) -> tuple:
+        return tuple(self.cache_key) + (_device_key(device),)
+
+    def _own_device(self, device: torch.device) -> None:
+        """A run on another device than the image's drops the image."""
+        if self._device is not None \
+                and _device_key(self._device) != _device_key(device):
+            self.evict()
+
+    def has_image(self, device: torch.device) -> bool:
+        """Whether this scan's image is on `device` (pinned here, or in
+        the ScanImageCache), without borrowing it."""
+        from cockroach_tpu_torch.exec.scan_cache import scan_image_cache
+
+        if self._stacked is not None and self._device is not None \
+                and _device_key(self._device) == _device_key(device):
+            return True
+        return (self.cache_key is not None
+                and scan_image_cache().contains(self._image_key(device)))
+
+    def stacked_image(self, device: torch.device) -> Optional[ScanImage]:
+        """This scan's image on `device`, pinned or borrowed from the
+        ScanImageCache; None when there is none (a scan that is not
+        resident, or has made no complete pass, or outran its budget)."""
+        self._own_device(device)
+        if self._stacked is None and self.cache_key is not None:
+            self._borrow_cached(device)
+        return self._stacked
+
+    def _raw_stream(self, device: torch.device) -> Iterator:
+        """The scan's pieces on `device` as (uint8 buffer, live rows):
+        the image's chunks, else a pass that packs and copies (and pins
+        its pieces as the image when resident and complete). The
+        accounting and the stacking run here, in the consumer's
+        thread."""
+        from cockroach_tpu_torch.util.mon import BudgetExceededError
+
+        image = self.stacked_image(device)
+        if image is not None:
+            for i, m in enumerate(image.ms_host):
+                yield image.bufs[i], m
+            return
+        acct = None
+        if self.resident:
+            acct = (self._monitor or hbm_cache_monitor()).make_account()
+        pieces: list = []
+        complete = False
+        stream = _prefetch(self._pack_stream(device), device)
+        try:
+            for item in stream:
+                if acct is not None:
+                    try:
+                        acct.grow(self._nbytes)
+                        pieces.append(item)
+                    except BudgetExceededError:
+                        acct.close()
+                        acct, pieces = None, []
+                yield item
+            complete = True
+        finally:
+            stream.close()  # an early exit stops the producer here
+            if acct is not None:
+                if complete and pieces:
+                    # only a COMPLETE pass becomes the resident image
+                    self._pin(device, pieces, acct)
+                else:
+                    acct.close()
+
+    def _pack_stream(self, device: torch.device) -> Iterator:
+        """Pack each piece into a fresh host buffer and start its copy."""
         pin = device.type == "cuda"
         for chunk in self._chunks():
             n = len(next(iter(chunk.values())))
@@ -127,7 +397,72 @@ class ScanOp(Operator):
                                   self.capacity)
                 with stats.timed("scan.transfer", bytes=self._nbytes):
                     buf = host.to(device, non_blocking=pin)
-                yield self._unpack(buf, m)
+                yield buf, m
+
+    def _pin(self, device: torch.device, pieces: list, acct) -> None:
+        """Stack a complete pass's pieces into the image, which takes
+        over the pass's account (grown by the `ms` array): one copy is
+        pinned, not two. With a cache key the ScanImageCache owns the
+        image and its accounting, unless it refuses it."""
+        from cockroach_tpu_torch.util.mon import BudgetExceededError
+
+        ms_host = tuple(m for _, m in pieces)
+        try:
+            acct.grow(4 * len(ms_host))
+        except BudgetExceededError:
+            acct.close()
+            return
+        pin = device.type == "cuda"
+        with stats.timed("scan.stack", bytes=len(pieces) * self._nbytes):
+            bufs = torch.stack([b for b, _ in pieces])
+            # a pinned source keeps the copy from waiting on the queue
+            ms = torch.tensor(ms_host, dtype=torch.int32)
+            ms = (ms.pin_memory() if pin else ms).to(device,
+                                                     non_blocking=pin)
+        image = ScanImage(bufs, ms, ms_host)
+        if self.cache_key is not None:
+            from cockroach_tpu_torch.exec.scan_cache import scan_image_cache
+
+            if scan_image_cache().put(self._image_key(device), image,
+                                      acct.used):
+                acct.close()
+                acct = None
+        self._stacked, self._stacked_account = image, acct
+        self._device = device
+
+    def evict(self):
+        """Drop the resident image and release its accounting (a borrowed
+        image is only un-referenced; the shared copy stays until the
+        cache evicts or invalidates it)."""
+        self._stacked = None
+        if self._stacked_account is not None:
+            self._stacked_account.close()
+            self._stacked_account = None
+        self._device = None
+
+    def _borrow_cached(self, device: torch.device) -> Optional[ScanImage]:
+        """Adopt the shared image for this scan's key on `device`."""
+        from cockroach_tpu_torch.exec.scan_cache import scan_image_cache
+
+        hit = scan_image_cache().get(self._image_key(device))
+        if hit is None:
+            return None
+        self._stacked, self._device = hit, device
+        return hit
+
+    def batches(self, device: torch.device) -> Iterator[Batch]:
+        for buf, m in self._raw_stream(device):
+            yield self._unpack(buf, m)
+
+
+def _source_scan(op: Operator):
+    """(the MapOps from `op` down, the ScanOp under them) when `op`'s
+    chain is MapOp* -> ScanOp; None otherwise."""
+    maps: List[MapOp] = []
+    while isinstance(op, MapOp):
+        maps.append(op)
+        op = op.child
+    return (maps, op) if isinstance(op, ScanOp) else None
 
 
 # ---------------------------------------------------------------- map
@@ -333,6 +668,12 @@ class HashAggOp(Operator):
         return hash_aggregate(empty, self.group_by, self.internal)
 
     def batches(self, device: torch.device) -> Iterator[Batch]:
+        # over MapOp* -> a resident ScanOp the stream below reads the
+        # scan's image chunk by chunk: the JAX package's stacked fold,
+        # which it compiles as one program, is this same loop eagerly
+        src = _source_scan(self.child)
+        if src is not None and src[1].has_image(device):
+            stats.add("agg.fold_stacked")
         if self.dense_sizes is not None:
             yield from self._dense_batches(device)
             return
@@ -420,9 +761,44 @@ class JoinOp(Operator):
             self.schema = Schema(
                 list(probe.schema.fields) + list(build.schema.fields), dicts)
 
+    def _try_stacked_build(self, device: torch.device) -> Optional[Batch]:
+        """The build side from a resident image in one pass, when the
+        build chain is MapOp* -> ScanOp and the scan's image is on the
+        device: flat-unpack the whole stack (coldata/arrow.py
+        make_flat_unpack), run the map chain once, compact, and repack to
+        exactly the batch the chunked build gives, row for row. None when
+        the scan has no image or one chunk, and when the build could pass
+        `workmem` (the chunked path then raises, as the grace join is not
+        ported). Counts `join.build_stacked`."""
+        src = _source_scan(self.build)
+        if src is None:
+            return None
+        maps, scan = src
+        image = scan.stacked_image(device)
+        if image is None or len(image.ms_host) < 2:
+            # one chunk: the chunked build takes it as it is, with no
+            # concatenation to save
+            return None
+        cap_sum = len(image.ms_host) * scan.capacity
+        budget_rows = max(1, self.workmem
+                          // max(_row_bytes(self.build.schema), 1))
+        if cap_sum > budget_rows:
+            return None
+        runs = [m._run for m in reversed(maps)]
+        with stats.timed("join.build"):
+            b = scan._flat_unpack(image.bufs, image.ms)
+            for run in runs:
+                b = run(b)
+            built = _repack_build(b.compact(), cap_sum)
+        stats.add("join.build_stacked")
+        return built
+
     def _materialize_build(self, device: torch.device) -> Optional[Batch]:
         """The whole build side as one compact batch on the device, or
         None when it has no batches."""
+        built = self._try_stacked_build(device)
+        if built is not None:
+            return built
         budget_rows = max(1, self.workmem
                           // max(_row_bytes(self.build.schema), 1))
         parts: List[Batch] = []
@@ -440,14 +816,10 @@ class JoinOp(Operator):
             cap_sum += b.capacity
         if not parts:
             return None
-        # the capacity comes from the batch capacities (a sync-free bound
-        # on the live rows); the lengths stay on the device
-        cap = _pow2_at_least(max(cap_sum, 1))
-        if len(parts) == 1 and parts[0].capacity == cap:
-            return parts[0]
+        if len(parts) == 1:
+            return _repack_build(parts[0], cap_sum)
         with stats.timed("join.build"):
-            merged = concat_batches(parts).compact()
-            return _grow_to(merged, cap) if cap > merged.capacity else merged
+            return _repack_build(concat_batches(parts).compact(), cap_sum)
 
     def widen(self):
         """FlowRestart remedy — descend the mode ladder: unique-mat (flags

@@ -1,0 +1,122 @@
+"""Cross-query device-resident scan-image cache.
+
+Counterpart of cockroach_tpu/exec/scan_cache.py. Reference: the Pebble
+block cache (pkg/storage) keeps hot table blocks in memory across
+statements; here the analog is the packed and stacked device image of a
+table's chunks (ScanOp._pin, ScanOp.stacked_image). The per-operator resident pin
+(ScanOp.resident) dies with its flow; this cache keys the image on the
+table's content identity, as Catalog.scan_cache_key gives it, so any
+ScanOp over the same data borrows the one device copy. The port's ScanOp
+learns its device only when it runs, so it appends the device to the
+catalog's key when it calls the cache: an image made on one device is
+never borrowed on another.
+
+LRU eviction runs under the `storage.hbm_scan_image_cache_bytes` budget
+(util/settings.py). Not ported yet: the fault-injection seam on insert
+(`maybe_fail("cache.insert")`, util/fault.py) and the trace records
+(util/tracing.py), which wait for those modules (ROADMAP.md queue 1,
+item 8).
+"""
+
+from __future__ import annotations
+
+import threading
+from collections import OrderedDict
+from typing import Any, Optional, Tuple
+
+from cockroach_tpu_torch.exec import stats
+from cockroach_tpu_torch.util.settings import (
+    SCAN_IMAGE_CACHE_BUDGET, Settings,
+)
+
+
+class ScanImageCache:
+    """LRU map: cache key tuple -> (value, nbytes). Thread-safe (plan
+    builds and prefetch threads may race)."""
+
+    def __init__(self, budget: Optional[int] = None):
+        self._mu = threading.Lock()
+        self._entries: "OrderedDict[tuple, Tuple[Any, int]]" = OrderedDict()
+        self._bytes = 0
+        self._budget = budget
+
+    def budget(self) -> int:
+        if self._budget is not None:
+            return self._budget
+        return int(Settings().get(SCAN_IMAGE_CACHE_BUDGET))
+
+    @property
+    def nbytes(self) -> int:
+        return self._bytes
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def get(self, key: tuple) -> Optional[Any]:
+        with self._mu:
+            hit = self._entries.get(key)
+            if hit is None:
+                stats.add("scan.cache_miss")
+                return None
+            self._entries.move_to_end(key)
+        stats.add("scan.cache_hit", bytes=hit[1])
+        return hit[0]
+
+    def contains(self, key: tuple) -> bool:
+        """Peek: is this exact key resident? No LRU bump, no hit/miss
+        stats."""
+        with self._mu:
+            return key in self._entries
+
+    def put(self, key: tuple, value: Any, nbytes: int) -> bool:
+        """Insert (replacing any stale entry); returns False when the item
+        alone exceeds the budget (the caller keeps its private copy)."""
+        budget = self.budget()
+        if nbytes > budget:
+            return False
+        evicted = 0
+        with self._mu:
+            old = self._entries.pop(key, None)
+            if old is not None:
+                self._bytes -= old[1]
+            self._entries[key] = (value, nbytes)
+            self._bytes += nbytes
+            while self._bytes > budget and self._entries:
+                _, (_, nb) = self._entries.popitem(last=False)
+                self._bytes -= nb
+                evicted += nb
+        if evicted:
+            stats.add("scan.cache_evict", bytes=evicted)
+        return True
+
+    def invalidate(self, prefix: tuple) -> int:
+        """Drop every entry whose key starts with `prefix`; returns the
+        number of entries dropped. (The JAX package's `keep_tag`, which
+        spares its device-resident MVCC tier, waits for that tier,
+        ROADMAP.md queue 1, item 6.)"""
+        n = len(prefix)
+        with self._mu:
+            dead = [k for k in self._entries if k[:n] == prefix]
+            for k in dead:
+                _, nb = self._entries.pop(k)
+                self._bytes -= nb
+        if dead:
+            stats.add("scan.cache_invalidate", events=len(dead))
+        return len(dead)
+
+    def clear(self) -> None:
+        with self._mu:
+            self._entries.clear()
+            self._bytes = 0
+
+
+_cache: Optional[ScanImageCache] = None
+
+
+def scan_image_cache() -> ScanImageCache:
+    """The process-wide cache (budgeted by a setting, like the
+    reference's single shared block cache per store)."""
+    global _cache
+    if _cache is None:
+        _cache = ScanImageCache()
+    return _cache

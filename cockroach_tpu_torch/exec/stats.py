@@ -12,7 +12,13 @@ device attribution trace a run with torch.profiler (chip_smoke.py
 --profile). The stages the port records:
 
   scan.pack       host packing of a chunk into the pinned wire buffer
+                  (on the prefetch thread, reported into the consumer's
+                  per-query collection)
   scan.transfer   enqueueing its host-to-device copy
+  scan.stack      stacking a resident scan's chunks into one image
+  scan.cache_*    the scan-image cache: hit, miss, evict, invalidate
+  agg.fold_stacked   a GROUP BY over a scan's resident image (an event)
+  join.build_stacked a join build made from a resident image (an event)
   agg.fold        a GROUP BY's per-batch partial and fold
   join.build      a join's build side: compaction, repack, prepare
   shrink          a ShrinkOp's concatenation and compaction
@@ -100,10 +106,9 @@ _active: Optional[StatsCollection] = None
 # for the duration of one statement (query_stats below). The module-level
 # _active stays the EXPLAIN ANALYZE / bench switch — visible to prefetch
 # threads — while the overlay gives every statement its own attribution
-# without turning the global on. Producer threads (scan prefetch) carry
-# no overlay, so streaming-tier pack/transfer time attributes to the
-# global collection only; the driving thread's dispatch/readback stages
-# are what the per-query breakdown covers.
+# without turning the global on. A scan's prefetch thread installs its
+# consumer's overlay (query_stats(col)), so pack and transfer time
+# attribute to the statement that pulled them.
 _tls = threading.local()
 
 
@@ -124,12 +129,13 @@ def active() -> Optional[StatsCollection]:
 
 
 @contextmanager
-def query_stats():
-    """Install a fresh per-query StatsCollection on this thread for the
-    statement's duration; yields the collection (read it AFTER the body
-    for the statement's operator breakdown). Nests, restoring the outer
-    overlay."""
-    col = StatsCollection()
+def query_stats(col: Optional[StatsCollection] = None):
+    """Install a per-query StatsCollection on this thread for the
+    statement's duration (a fresh one, or `col`: a producer thread
+    reporting into its consumer's statement); yields the collection
+    (read it AFTER the body for the statement's operator breakdown).
+    Nests, restoring the outer overlay."""
+    col = StatsCollection() if col is None else col
     prev = getattr(_tls, "col", None)
     _tls.col = col
     try:

@@ -15,9 +15,9 @@ ScalarFunc. Semantics follow SQL:
 - dates are int32 days since the epoch; EXTRACT runs the civil-calendar
   integer algorithm on the device.
 
-The results equal the JAX package's compiled (jit) programs bit for bit,
-which differ from PyTorch's eager arithmetic in three places the port
-makes explicit:
+The results equal the JAX package's compiled (jit) programs on the CPU
+bit for bit, which differ from PyTorch's eager arithmetic in four places
+the port makes explicit:
 - XLA's float -> integer conversion saturates (NaN -> 0, +-inf and
   out-of-range values -> the integer type's bounds); PyTorch leaves those
   inputs undefined (INT_MIN for all of them on the CPU), so the port
@@ -28,6 +28,10 @@ makes explicit:
   constant zero, a multiply or divide by a constant 1 or -1, a divide by
   a constant zero (whose NULL lanes divide by 1) and -0.0 - x leave the
   other operand's bits as they are, or negated (_xla_fold);
+- XLA's CPU backend divides by a constant as a multiply by its float32
+  reciprocal (a subnormal divisor tested for zero unflushed), merges
+  chains of constant multipliers, and contracts a product that feeds an
+  add or subtract into one fused multiply-add, rounded once (_fma);
 - `//` is floor division and `mod` truncates (lax.rem), as in the JAX
   package.
 
@@ -40,7 +44,7 @@ from __future__ import annotations
 import math
 import re
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -427,16 +431,24 @@ def eval_expr(expr: Expr, batch: Batch, schema: Schema,
 
     if isinstance(expr, BinOp):
         lt, rt = expr.left.type(schema), expr.right.type(schema)
+        out_ty = expr.type(schema)
+        if out_ty.kind is Kind.FLOAT:
+            # XLA's rewrites read only a part of the tree below: evaluate
+            # just that part, once
+            form = _table(tables, expr, "xla_form",
+                          lambda: _float_form(expr, schema))
+            if form is not None:
+                return _eval_float_form(form, ev, schema, cap, dev)
         lc = ev(expr.left)
         rc = ev(expr.right)
         validity = _combine_validity(lc, rc)
-        out_ty = expr.type(schema)
 
         if out_ty.kind is Kind.DECIMAL:
             ls = lt.scale if lt.kind is Kind.DECIMAL else 0
             rs = rt.scale if rt.kind is Kind.DECIMAL else 0
-            lv = lc.values.to(torch.int64)
-            rv = rc.values.to(torch.int64)
+            # a float operand truncates to int64 as it is, saturating
+            lv = _to_dtype(lc.values, torch.int64)
+            rv = _to_dtype(rc.values, torch.int64)
             if expr.op in ("+", "-"):
                 s = out_ty.scale
                 lv, rv = _rescale(lv, ls, s), _rescale(rv, rs, s)
@@ -451,15 +463,10 @@ def eval_expr(expr: Expr, batch: Batch, schema: Schema,
             lv = _as_float(lc.values, lt)
             rv = _as_float(rc.values, rt)
             if expr.op == "/":
-                validity = _and_validity(validity, rv != 0)
-            fold = _table(tables, expr, "xla_fold",
-                          lambda: _xla_fold(expr, schema))
-            if fold is not None:
-                side, negate = fold
-                kept = (_float32(lc.values, lt) if side == 0
-                        else _float32(rc.values, rt))
-                return Column(-kept if negate else kept, validity)
-            if expr.op == "/":
+                # a constant divisor is tested on the host, unflushed
+                zero_test = (_float32(rc.values, rt)
+                             if not _has_col(expr.right) else rv)
+                validity = _and_validity(validity, zero_test != 0)
                 one = _scalar(1.0, torch.float32, dev)
                 vals = lv / torch.where(rv == 0, one, rv)
             else:
@@ -800,10 +807,16 @@ def _constant_float(e: Expr, schema: Schema) -> Optional[float]:
     other expression."""
     if _has_col(e):
         return None
+    return float(_float32(_constant_column(e, schema).values,
+                          e.type(schema))[0])
+
+
+def _constant_column(e: Expr, schema: Schema) -> Column:
+    """An expression without column references, evaluated on the host
+    in one lane."""
     one = Batch({}, torch.ones(1, dtype=torch.bool),
                 torch.ones((), dtype=torch.int32))
-    return float(_float32(eval_expr(e, one, schema, {}).values,
-                          e.type(schema))[0])
+    return eval_expr(e, one, schema, {})
 
 
 def _xla_fold(expr: BinOp, schema: Schema):
@@ -835,6 +848,248 @@ def _xla_fold(expr: BinOp, schema: Schema):
     elif expr.op == "/" and rc in (0.0, 1.0, -1.0):
         return 0, rc < 0
     return None
+
+
+# XLA's CPU backend rewrites float products further, found the same way
+# (jax.jit of the JAX package's eval_expr against every form):
+# - x / c, for a constant c that _xla_fold keeps, becomes x * fl(1 / c),
+#   the reciprocal taken on the host without a flush (so x / 1e-45 is
+#   x * inf, and its lanes stay valid);
+# - (a * c1) * c2 becomes a * fl(c1 * c2), the outer constants first:
+#   ((a * c1) * c2) * c3 is a * fl(c1 * fl(c2 * c3)); a decimal's
+#   conversion to float is such a product (the integer value times
+#   fl(1 / 10^scale));
+# - a product that feeds an add or subtract directly, through folds, a
+#   float-to-float cast or a negation, contracts into one fused
+#   multiply-add, rounded once; when both operands are products, the
+#   left one contracts. Only a product with one consumer contracts: an
+#   expression that repeats a product is not held to this.
+
+def _recip(c) -> np.float32:
+    with np.errstate(all="ignore"):
+        return np.float32(1.0) / np.float32(c)
+
+
+def _operand_chain(e: Expr, schema: Schema):
+    """(base, constants) when a float operand's value is base times the
+    constants (float32, innermost first) after XLA's rewrites; None
+    otherwise."""
+    if not _has_col(e):
+        return None
+    ty = e.type(schema)
+    if ty.kind is Kind.DECIMAL:
+        return e, (_recip(10 ** ty.scale),)
+    if isinstance(e, Cast) and ty.kind is Kind.FLOAT:
+        ft = e.arg.type(schema)
+        return (_operand_chain(e.arg, schema)
+                if ft.kind in (Kind.DECIMAL, Kind.FLOAT) else None)
+    if not (isinstance(e, BinOp) and ty.kind is Kind.FLOAT):
+        return None
+    return _scale_chain(e, schema)
+
+
+def _chain_constant(consts) -> np.float32:
+    """The one constant a chain multiplies by, combined outermost first."""
+    acc = consts[-1]
+    with np.errstate(all="ignore"):
+        for c in reversed(consts[:-1]):
+            acc = np.float32(c * acc)
+    return acc
+
+
+def _scale_chain(e: BinOp, schema: Schema):
+    """_operand_chain of a float BinOp: a fold passes its kept operand's
+    chain on (negated or not), a multiply by a constant or a divide by
+    one extends its operand's chain."""
+    fold = _xla_fold(e, schema)
+    if fold is not None:
+        side, negate = fold
+        sub = _operand_chain((e.left, e.right)[side], schema)
+        if sub is None:
+            return None
+        return sub[0], sub[1][:-1] + (-sub[1][-1] if negate else sub[1][-1],)
+    lc = _constant_float(e.left, schema)
+    rc = _constant_float(e.right, schema)
+    if e.op == "*" and (lc is None) != (rc is None):
+        other, c = (e.left, np.float32(rc)) if lc is None else (
+            e.right, np.float32(lc))
+    elif e.op == "/" and lc is None and rc is not None:
+        other, c = e.left, _recip(rc)
+    else:
+        return None
+    sub = _operand_chain(other, schema)
+    if sub is None:
+        return other, (c,)
+    return sub[0], sub[1] + (c,)
+
+
+def _product(e: Expr, schema: Schema):
+    if not _has_col(e):
+        return None
+    chain = _operand_chain(e, schema)
+    if chain is not None:
+        base, c = chain[0], _chain_constant(chain[1])
+        return None if c in (1.0, -1.0) else (("raw", base), ("const", c),
+                                              False)
+    if isinstance(e, Cast) and e.to.kind is Kind.FLOAT \
+            and e.arg.type(schema).kind is Kind.FLOAT:
+        return _product(e.arg, schema)
+    if isinstance(e, BinOp) and e.type(schema).kind is Kind.FLOAT:
+        fold = _xla_fold(e, schema)
+        if fold is not None:
+            side, negate = fold
+            sub = _product((e.left, e.right)[side], schema)
+            return None if sub is None else (sub[0], sub[1], sub[2] != negate)
+        if e.op == "*":
+            return ("val", e.left), ("val", e.right), False
+    return None
+
+
+def _raw_float(c: Column, ty: ColType, flush: bool = True) -> torch.Tensor:
+    """The float32 value a chain multiplies: a decimal's integer value
+    unscaled, a float flushed (when it is a multiply's operand)."""
+    if ty.kind is Kind.FLOAT:
+        return _ftz(c.values) if flush else c.values
+    return c.values.to(torch.float32)
+
+
+class _FloatForm(NamedTuple):
+    """How XLA computes a float BinOp it rewrites. `kind` is "fold"
+    (srcs[0] kept, negated or not), "scale" (srcs[0] times `const`) or
+    "fma" (srcs[0] * srcs[1] + srcs[2], the product negated or not, the
+    addend negated when `neg_other`). `leaves` are the expressions
+    evaluated, whose validity the result takes, with what the nodes
+    above them add (`extra`, _form_validity)."""
+
+    kind: str
+    srcs: tuple
+    const: Optional[np.float32]
+    negate: bool
+    neg_other: bool
+    leaves: tuple
+    extra: Optional[bool]
+
+
+def _float_form(e: BinOp, schema: Schema) -> Optional[_FloatForm]:
+    """The rewritten form of a float BinOp, or None for the plain one.
+    Sources are ("val", expr) (an operand, flushed), ("raw", expr) (a
+    chain's base, _raw_float), ("keep", expr) (unflushed) or
+    ("const", c)."""
+    fold = _xla_fold(e, schema)
+    if fold is not None:
+        side, negate = fold
+        srcs, const, neg_other = (("keep", (e.left, e.right)[side]),), \
+            None, False
+    elif (chain := _scale_chain(e, schema)) is not None:
+        base, c = chain[0], _chain_constant(chain[1])
+        unit = c in (1.0, -1.0)  # the combined constant folds away
+        # then a float base passes unflushed; a decimal's integer value
+        # is read as it is either way
+        keep = unit and base.type(schema).kind is Kind.FLOAT
+        srcs = (("keep" if keep else "raw", base),)
+        const = None if unit else c
+        negate, neg_other = unit and c < 0, False
+    elif e.op in ("+", "-"):
+        for side, operand in enumerate((e.left, e.right)):
+            prod = _product(operand, schema)
+            if prod is not None:
+                break
+        else:
+            return None
+        x, y, negate = prod
+        other = ("val", (e.left, e.right)[1 - side])
+        neg_other = e.op == "-" and side == 0
+        if e.op == "-" and side == 1:
+            negate = not negate
+        srcs, const = (x, y, other), None
+    else:
+        return None
+    leaves = tuple(x for kind, x in srcs if kind != "const")
+    return _FloatForm("fold" if fold is not None else
+                      "scale" if len(srcs) == 1 else "fma", srcs, const,
+                      negate, neg_other, leaves,
+                      _form_validity(e, leaves, schema))
+
+
+def _form_validity(e: Expr, leaves: tuple, schema: Schema
+                   ) -> Optional[bool]:
+    """What the nodes between `e` and its leaves (float BinOps and
+    casts) add to the leaves' validity: None nothing, True a mask that
+    is all valid (a divide by a nonzero constant, a constant that
+    carries one), False every lane NULL (a NULL constant, a divide by a
+    constant zero)."""
+    if any(e is leaf for leaf in leaves):
+        return None
+    if not _has_col(e):
+        v = _constant_column(e, schema).validity
+        return None if v is None else bool(v[0])
+    if isinstance(e, Cast):
+        return _form_validity(e.arg, leaves, schema)
+    assert isinstance(e, BinOp), e
+    parts = [_form_validity(e.left, leaves, schema),
+             _form_validity(e.right, leaves, schema)]
+    if e.op == "/":
+        parts.append(_constant_float(e.right, schema) != 0.0)
+    if False in parts:
+        return False
+    return True if True in parts else None
+
+
+def _eval_float_form(form: _FloatForm, ev, schema: Schema, cap: int,
+                     device) -> Column:
+    cols = {}
+    for leaf in form.leaves:
+        if id(leaf) not in cols:
+            cols[id(leaf)] = ev(leaf)
+    validity = None
+    if form.extra is not None:
+        validity = torch.full((cap,), form.extra, dtype=torch.bool,
+                              device=device)
+    for c in cols.values():
+        if c.validity is not None:
+            validity = _and_validity(validity, c.validity)
+
+    def source(src) -> torch.Tensor:
+        kind, x = src
+        if kind == "const":
+            return _scalar(x, torch.float32, device)
+        ty, values = x.type(schema), cols[id(x)].values
+        if kind == "keep":
+            return _float32(values, ty)
+        if kind == "raw":
+            return _raw_float(cols[id(x)], ty)
+        return _as_float(values, ty)
+
+    if form.kind == "fold":
+        kept = source(form.srcs[0])
+        return Column(-kept if form.negate else kept, validity)
+    if form.kind == "scale":
+        v = source(form.srcs[0])
+        if form.const is None:
+            return Column(-v if form.negate else v, validity)
+        return Column(_ftz(v * _scalar(form.const, torch.float32, device)),
+                      validity)
+    xv, yv, other = (source(s) for s in form.srcs)
+    return Column(_fma(-xv if form.negate else xv, yv,
+                       -other if form.neg_other else other), validity)
+
+
+def _fma(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """float32 x * y + z rounded once, then flushed: the product is exact
+    in float64, the sum's rounding error exact by TwoSum, and a sum that
+    was rounded with a nonzero error is moved to the odd neighbour, so
+    the final rounding to float32 cannot round twice."""
+    x, y, z = (t.to(torch.float64) for t in (x, y, z))
+    p = x * y
+    s = p + z
+    bp = s - p
+    err = (p - (s - bp)) + (z - bp)
+    even = (s.view(torch.int64) & 1) == 0
+    away = torch.where(err > 0, torch.full_like(s, math.inf),
+                       torch.full_like(s, -math.inf))
+    s = torch.where(torch.isfinite(s) & (err != 0) & even,
+                    torch.nextafter(s, away), s)
+    return _ftz(s.to(torch.float32))
 
 
 def _numeric_align(lv, lt: ColType, rv, rt: ColType):

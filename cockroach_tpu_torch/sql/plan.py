@@ -62,6 +62,13 @@ class Catalog:
         or None."""
         return None
 
+    def scan_cache_key(self, name: str, columns, capacity: int
+                       ) -> Optional[tuple]:
+        """A content-identity key for the table's packed image (the
+        ScanImageCache key, exec/scan_cache.py), or None when the
+        catalog cannot vouch that the data behind a name is unchanged."""
+        return None
+
 
 _TPCH_PKS = {
     "part": ("p_partkey",), "supplier": ("s_suppkey",),
@@ -105,6 +112,14 @@ class TPCHCatalog(Catalog):
                 yield ({k: c[k] for k in columns} if columns else c)
 
         return chunks
+
+    def scan_cache_key(self, name: str, columns, capacity: int
+                       ) -> Optional[tuple]:
+        # generated data is a pure function of (sf, seed): images are
+        # shareable across generator AND catalog instances
+        return ("tpch", float(self.gen.sf),
+                int(getattr(self.gen, "seed", 0)), name, int(capacity),
+                tuple(columns or ()))
 
 
 # ------------------------------------------------------------------ plans --
@@ -613,7 +628,10 @@ def build(p: Plan, catalog: Catalog, capacity: int = 1 << 17,
             if cols:
                 schema = schema.project(cols)
             chunks = catalog.table_chunks(node.table, capacity, cols)
-            return ScanOp(schema, chunks, capacity, table=node.table)
+            return ScanOp(schema, chunks, capacity,
+                          cache_key=catalog.scan_cache_key(
+                              node.table, cols, capacity),
+                          table=node.table)
         if isinstance(node, Filter):
             return MapOp(rec(node.input), [("filter", node.predicate)])
         if isinstance(node, Shrink):

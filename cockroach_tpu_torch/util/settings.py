@@ -121,3 +121,19 @@ KERNELS = Settings.register(
     "CUDA kernel mode: auto | off",
     validate=_one_of("auto", "off"),
 )
+# Device memory for resident scan images (exec/operators.py ScanOp
+# resident=True, accounted by hbm_cache_monitor) and for the cross-query
+# scan-image cache (exec/scan_cache.py); the JAX package's names and
+# defaults, where HBM is the TPU's device memory.
+HBM_CACHE_BUDGET = Settings.register(
+    "storage.hbm_cache_bytes",
+    8 << 30,
+    "device memory budget for resident table images (the block-cache "
+    "analog)",
+)
+SCAN_IMAGE_CACHE_BUDGET = Settings.register(
+    "storage.hbm_scan_image_cache_bytes",
+    6 << 30,
+    "device memory budget for the cross-query scan-image cache "
+    "(LRU-evicted)",
+)

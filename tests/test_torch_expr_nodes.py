@@ -366,3 +366,174 @@ def test_xla_folds_match_jax_on_card(batch, name):
     got = tx.eval_expr(to_port(e), port_batch(jb, "cuda"), ts, {})
     assert got.values.is_cuda
     _assert_same_bits(want, got, name)
+
+
+def _fma_batch():
+    """Float columns f, g, h of random normal values with the subnormal,
+    tiny, huge and non-finite edge cases, an int and a decimal column,
+    and two lanes where rounding a float64 sum to float32 would round
+    twice: (1 + 2^-23)(1 - 2^-24) + 2^-47(1 + 2^-23) is just above the
+    midpoint between 1 and its float32 successor, and the same with the
+    addend's sign flipped just below it."""
+    n = 2048
+    edge = np.array([3e-38, -3e-38, 1e-45, 1e-40, 0.0, -0.0, 1.0, np.inf,
+                     np.nan, 1.5, 3e38, -3e38, 1.1754944e-38], np.float32)
+    rng = np.random.default_rng(6)
+
+    def floats():
+        v = (rng.normal(0, 1, n)
+             * 10.0 ** rng.integers(-3, 4, n)).astype(np.float32)
+        v[:13 * len(edge)] = np.tile(edge, 13)
+        return v
+
+    f, g, h = floats(), floats(), floats()
+    g[:13 * len(edge)] = np.repeat(edge, 13)
+    h[:169], h[169:338] = 0.0, -0.0
+    one_up, one_down = np.float32(1 + 2.0 ** -23), np.float32(1 - 2.0 ** -24)
+    f[-2:], g[-2:] = one_up, one_down
+    h[-2:] = [2.0 ** -47 * (1 + 2.0 ** -23), -(2.0 ** -47) * (1 - 2.0 ** -23)]
+    F = jbatch.Field
+    js = jbatch.Schema([F("f", jbatch.FLOAT), F("g", jbatch.FLOAT),
+                        F("h", jbatch.FLOAT), F("i", jbatch.INT),
+                        F("d", jbatch.DECIMAL(2))])
+    cols = {"f": f, "g": g, "h": h.astype(np.float32),
+            "i": rng.integers(-1000, 1000, n),
+            "d": rng.integers(-10 ** 6, 10 ** 6, n)}
+    jb = jbatch.Batch({k: jbatch.Column(jnp.asarray(v))
+                       for k, v in cols.items()},
+                      jnp.ones(n, jnp.bool_), jnp.int32(n))
+    return jb, js
+
+
+def _contractions():
+    """Float forms XLA's CPU backend rewrites under jit, each found by
+    probing jax.jit(eval_expr): a product feeding + or - contracts into
+    a fused multiply-add (one rounding, so 0.0 - f * f keeps the sign
+    of an underflowing product); x / c is x * fl(1 / c), so a subnormal
+    literal divisor leaves its lanes valid and divides by zero on the
+    device; constant multipliers merge; a float operand of decimal
+    arithmetic truncates to int64 saturating."""
+    C, L, B = jx.Col, jx.Lit, jx.BinOp
+    f, g, h, i, d = (C(n) for n in "fghid")
+    fg = B("*", f, g)
+    FLOAT = jbatch.FLOAT
+    return {
+        # the four shapes, 0.0 - f*f, and casts and folds
+        # between the product and the add
+        "h-f*g": B("-", h, fg), "f*g-h": B("-", fg, h),
+        "h+f*g": B("+", h, fg), "f*g+h": B("+", fg, h),
+        "0.0-f*f": B("-", L(0.0), B("*", f, f)),
+        "h-cast(f*g)": B("-", h, jx.Cast(fg, FLOAT)),
+        "0.0-cast(f*g)": B("-", L(0.0), jx.Cast(fg, FLOAT)),
+        "h-(f*g+0.0)": B("-", h, B("+", fg, L(0.0))),
+        "h-(f*g)*1.0": B("-", h, B("*", fg, L(1.0))),
+        "h-(-1.0*(f*g))": B("-", h, B("*", L(-1.0), fg)),
+        "(h-f*g)*1.0": B("*", B("-", h, fg), L(1.0)),
+        # both operands products: the left one contracts
+        "f*g+h*f": B("+", fg, B("*", h, f)),
+        "f*g-h*f": B("-", fg, B("*", h, f)),
+        # the product's operands: an int, a product, a constant
+        "h-i*f": B("-", h, B("*", i, f)),
+        "h-(f*g)*h": B("-", h, B("*", fg, h)),
+        "(f*g+h)*2.0+h": B("+", B("*", B("+", fg, h), L(2.0)), h),
+        # a decimal's conversion to float is a product too
+        "h+cast(d)": B("+", h, jx.Cast(d, FLOAT)),
+        "cast(d)-h": B("-", jx.Cast(d, FLOAT), h),
+        "d/1.0+h": B("+", B("/", d, L(1.0)), h),
+        # division by a constant: the reciprocal, merged and contracted
+        "f/3.0": B("/", f, L(3.0)), "h+f/3.0": B("+", h, B("/", f, L(3.0))),
+        "d/3.0": B("/", d, L(3.0)), "h-d/7.0": B("-", h, B("/", d, L(7.0))),
+        "(f*3.0)/7.0": B("/", B("*", f, L(3.0)), L(7.0)),
+        "((f/7.0)*3.0)*5.0": B("*", B("*", B("/", f, L(7.0)), L(3.0)),
+                               L(5.0)),
+        "(d/7.0)*3.0": B("*", B("/", d, L(7.0)), L(3.0)),
+        "h-i/3.0": B("-", h, B("/", i, L(3.0))),
+        # a subnormal literal divisor: valid lanes, inf or NaN values
+        "f/1e-45": B("/", f, L(1e-45)), "f/-1e-45": B("/", f, L(-1e-45)),
+        "h-f/1e-45": B("-", h, B("/", f, L(1e-45))),
+        # a NULL constant or a zero divisor inside a rewritten form
+        "h-(f*g)/0.0": B("-", h, B("/", fg, L(0.0))),
+        "(f*3.0)/0.0": B("/", B("*", f, L(3.0)), L(0.0)),
+        "h+(f*g+null)": B("+", h, B("+", fg, L(None, FLOAT))),
+        # decimal arithmetic with a float operand
+        "f+d": B("+", f, d), "d-f": B("-", d, f), "f*d": B("*", f, d),
+        "i+d*f": B("+", i, B("*", d, f)),
+    }
+
+
+@pytest.fixture(scope="module")
+def fma_batch():
+    jb, js = _fma_batch()
+    return jb, js, port_batch(jb), port_schema(js)
+
+
+def test_fma_batch_has_double_rounding_lanes(fma_batch):
+    """The last two lanes of f * g + h round to 1 + 2^-23 and 1 under
+    jit: one rounding. Rounding their float64 sums to float32 gives 1
+    for both."""
+    jb, js, tb, ts = fma_batch
+    e = _contractions()["f*g+h"]
+    want = np.asarray(jax.jit(lambda b: jx.eval_expr(e, b, js))(jb).values)
+    assert want[-2:].tolist() == [np.float32(1 + 2.0 ** -23), 1.0]
+    f, g, h = (np.asarray(jb.columns[c].values)[-2:].astype(np.float64)
+               for c in "fgh")
+    assert (f * g + h).astype(np.float32).tolist() == [1.0, 1.0]
+    got = tx.eval_expr(to_port(e), tb, ts, {})
+    assert got.values[-2:].tolist() == want[-2:].tolist()
+
+
+@pytest.mark.parametrize("name", sorted(_contractions()))
+def test_xla_contractions_match_jax_under_jit(fma_batch, name):
+    jb, js, tb, ts = fma_batch
+    e = _contractions()[name]
+    want = jax.jit(lambda b: jx.eval_expr(e, b, js))(jb)
+    got = tx.eval_expr(to_port(e), tb, ts, {})
+    if np.asarray(want.values).dtype == np.float32:
+        _assert_same_bits(want, got, name)
+    else:
+        assert_same_column(want, got, name)
+
+
+@pytest.mark.parametrize("name, calls", [
+    ("((f/7.0)*3.0)*5.0", 2), ("(f*g+h)*2.0+h", 6), ("h-(f*g)*h", 6),
+    ("h+cast(d)", 3), ("f/1e-45", 2)])
+def test_rewritten_forms_evaluate_each_node_once(fma_batch, monkeypatch,
+                                                 name, calls):
+    """A rewritten float form evaluates only the nodes it reads, each
+    once: ((f/7.0)*3.0)*5.0 reads f alone, (f*g+h)*2.0+h contracts
+    twice over f, g, h and h, so nested chains and contractions cost no
+    more than their leaves (h-(f*g)*h evaluates f*g once, as a plain
+    product, and each of its two h nodes)."""
+    jb, js, tb, ts = fma_batch
+    e = to_port(_contractions()[name])
+    seen = []
+    inner = tx.eval_expr
+
+    def counted(expr, batch, *args):
+        if batch is tb:  # not the host's evaluation of a constant
+            seen.append(expr)
+        return inner(expr, batch, *args)
+
+    monkeypatch.setattr(tx, "eval_expr", counted)
+    got = tx.eval_expr(e, tb, ts, {})
+    assert len(seen) == calls, [type(x).__name__ for x in seen]
+    want = jax.jit(lambda b: jx.eval_expr(_contractions()[name], b, js))(jb)
+    _assert_same_bits(want, got, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(_contractions()))
+def test_xla_contractions_match_jax_on_card(fma_batch, name):
+    """On the card separate multiply and add kernels never contract, so
+    the port's explicit one-rounding form must hold there too."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    jb, js, _tb, ts = fma_batch
+    e = _contractions()[name]
+    want = jax.jit(lambda b: jx.eval_expr(e, b, js))(jb)
+    got = tx.eval_expr(to_port(e), port_batch(jb, "cuda"), ts, {})
+    assert got.values.is_cuda
+    if np.asarray(want.values).dtype == np.float32:
+        _assert_same_bits(want, got, name)
+    else:
+        assert_same_column(want, got, name)

@@ -15,13 +15,17 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 # the modules of the sort-based GROUP BY, the joins, top-K, the
-# expressions, DISTINCT and the planner (its statistics and
-# decorrelation): imported by name, so a module that goes missing fails here rather than being
-# skipped by the package walk
+# expressions, DISTINCT, the planner (its statistics and
+# decorrelation), and the resident scan (memory accounting, the stopper
+# of the prefetch threads, the scan-image cache): imported by name, so a
+# module that goes missing fails here rather than being skipped by the
+# package walk
 SLICE_MODULES = ["ops.hash", "ops.prefix", "ops.search", "ops.rowmat",
                  "ops.hashtable", "ops.join", "ops.sortjoin", "ops.agg",
                  "ops.sort", "ops.expr", "ops.distinct", "exec.operators",
-                 "sql.plan", "sql.stats", "workload.tpch_queries"]
+                 "sql.plan", "sql.stats", "workload.tpch_queries",
+                 "util.mon", "util.stop", "exec.scan_cache",
+                 "coldata.arrow", "util.settings"]
 
 
 def test_port_imports_no_jax_pyarrow_or_jax_package():
@@ -48,7 +52,7 @@ def test_port_imports_no_jax_pyarrow_or_jax_package():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
     n_modules = int(r.stdout.split()[0])
-    assert n_modules >= 23, r.stdout
+    assert n_modules >= 26, r.stdout
 
 
 def test_collect_without_cuda_or_device_raises(monkeypatch):
