@@ -76,11 +76,36 @@ Phases, each printed on lines of its own:
      Q15's LEFT join probes, Q17's per-part GROUP BY partial and fold
      step and Q16's DistinctOp; dense_sums at Q4's and Q5's shapes
      against its plain version, bit for bit, and timed beside its bound
-     as in phase 5. Then the whole run's seconds, one JSON line per
-     query (Q1 and phases 6, 7 and 8),
-     the JSON line of kernels (dense_sums' launches in the Q1 run, by
-     path: Q1, Q12, Q4 and Q5, and its times at Q1's, Q4's and Q5's
-     shapes), the card line and, last, the result line.
+     as in phase 5. Phases 4 and 6 to 8 run the streaming tier
+     (`collect(flow, fuse=False)`);
+  9. the fifteen queries through `collect(flow)`, whose default is the
+     fused tier (exec/fused.py): each query one CUDA graph over its
+     resident images. Per query a cold run (the images borrowed from the
+     scan-image cache, the eager warm-up, the capture, a replay) and 5
+     warm runs, each equal to its oracle and to its streaming result of
+     phases 4 to 8, none leaving the fused tier (no
+     `fused.fallback_*` or `resilience.*` event; the one exception
+     allowed is the JAX tracer's own workmem rule, printed); every warm
+     run exactly one graph replay with at most one synchronizing call
+     inside collect, no restart (the cold run's as COLD_RESTARTS_FUSED
+     says), the routes of FUSED_ROUTES and every image unchanged. One
+     more warm run is traced with torch.profiler: it must be a replay,
+     and the dense_sums kernels the trace shows it running must number
+     FUSED_K1 (the launch counts the runner adds on each replay, from
+     what its capture recorded, must agree). Then every graph is
+     replayed once more after all the captures (the graphs share one
+     memory pool) and held to its oracle, and dense_sums at the shapes
+     of the fused Q1, Q4, Q5 and Q12 (one call over each dense GROUP BY's
+     materialized input) held bit for bit and timed. Prints per query
+     the fused warm median and every warm time, the cold time, the
+     capture ms, the restarts per run, the syncs, the graph pool's
+     growth, the routes, and the traced replay's device busy ms, kernel
+     count, cummax total and three longest device ops. Then the whole
+     run's seconds, one JSON line per query (Q1 and phases 6 to 9), the
+     JSON line of kernels (dense_sums' launches in the Q1 run, by path:
+     Q1, Q12, Q4 and Q5, and in the traced fused replays of Q1, Q4, Q5
+     and Q12; its times at Q1's, Q4's and Q5's shapes and at the fused
+     queries' shapes), the card line and, last, the result line.
 
 Phase 2 fails if ptxas reports spills in dense_sums' Q1 instantiation,
 or if its SASS (cuobjdump -sass) holds a shared-memory atomic (ATOMS).
@@ -89,7 +114,9 @@ Any mismatch or exception exits non-zero. With --profile DIR, one more
 run of each query is traced with torch.profiler: the kernel tables go to
 DIR/<query>_profile.txt, the traces to DIR/<query>_trace.json, and
 phases 6, 7 and 8 print each query's device busy time, the join probes'
-cummax total and call count, and its ten longest device ops.
+cummax total and call count, and its ten longest device ops. Phase 9's
+traced replays go to DIR/<query>_fused_*, or without --profile to
+build/phase9_traces/.
 """
 
 import argparse
@@ -115,6 +142,10 @@ PEAK_OPS_PER_S = 67e12
 # dense_sums at Q1's shape in its first version, before the redesign for
 # Hopper (PERF.md, Findings: NVIDIA H100 80GB HBM3, 700.00 W)
 DENSE_SUMS_FIRST_MS = 0.2161
+# the name of dense_sums' main kernel in a profiler trace; one call of
+# the wrapper launches one for each 32 columns (ops/cuda_kernels.py
+# MAX_COLS), and every fused query's dense GROUP BY has fewer
+DS_KERNEL = "dense_sums_kernel"
 # dense_sums_kernel<KC, EXACT, VEC, PRIV> as ptxas names it; Q1's
 # instantiation is <6, true, true, true>
 _DS_ENTRY = re.compile(r"dense_sums_kernelILi(\d+)ELb(\d)ELb(\d)ELb(\d)EE")
@@ -458,6 +489,9 @@ PHASE_TABLES = {6: ("customer", "orders", "lineitem"),
 #   the unique-mat build flags it and widens to expand;
 # every other Shrink start capacity exceeds its real row count at SF 1
 COLD_RESTARTS = {"q18": 1, "q2": 1, "q16": 2, "q4": 1}
+# each query's rows from its streaming runs (phases 6 to 8), which phase
+# 9's fused runs must equal
+STREAMING_ROWS: dict = {}
 
 
 def _chunks(table):
@@ -799,9 +833,9 @@ def run_query_phase(torch, gen, phase: int, names):
     image from the scan-image cache, and one streaming flow (cache off),
     a cold and a warm run. -> ({name: JSON record}, flows)."""
     from cockroach_tpu_torch.exec import stats
-    from cockroach_tpu_torch.exec.operators import collect
     from cockroach_tpu_torch.exec.scan_cache import scan_image_cache
 
+    collect = streaming_collect()
     t0 = time.perf_counter()
     for t in PHASE_TABLES[phase]:
         gen.table(t)
@@ -823,6 +857,7 @@ def run_query_phase(torch, gen, phase: int, names):
             raise SystemExit(f"{name} {label}: {rows[:3]}... differs from "
                              f"its columnar oracle {oracles[name][:3]}...")
         check_launches(name, gen, out[5], out[2])
+        STREAMING_ROWS[name] = rows
         return out
 
     records = {}
@@ -918,6 +953,8 @@ def budget_exhausted_run(torch, gen) -> None:
     from cockroach_tpu_torch.exec import stats
     from cockroach_tpu_torch.util.settings import HBM_CACHE_BUDGET, Settings
 
+    collect = streaming_collect()
+
     flow = query_flows(gen)["q6"]()
     feed_pregenerated(flow, gen, CAPACITY)
     make_resident(flow)
@@ -931,7 +968,7 @@ def budget_exhausted_run(torch, gen) -> None:
     try:
         for i in range(2):
             res, dt, _r, _s, _y, _l, ev = timed_collect(
-                torch, stats, ops.collect, flow)
+                torch, stats, collect, flow)
             if query_rows("q6", res) != want:
                 raise SystemExit(f"q6 over budget, run {i}: differs from "
                                  f"its oracle")
@@ -953,8 +990,7 @@ def budget_exhausted_run(torch, gen) -> None:
 def profile_queries(torch, records, flows, profile_dir) -> None:
     """One traced run of each query: its device busy time, the ten
     longest device ops and the join probe's cummax total."""
-    from cockroach_tpu_torch.exec.operators import collect
-
+    collect = streaming_collect()
     for name, flow in flows.items():
         busy, wall, top, cummax, cummax_calls = trace_query(
             torch, collect, flow, os.path.join(profile_dir, name))
@@ -1095,9 +1131,9 @@ def run_phase4(torch, gen):
     borrows the image. -> (flow, its JSON record, the cold run's
     kernel launches)."""
     from cockroach_tpu_torch.exec import stats
-    from cockroach_tpu_torch.exec.operators import collect
     from cockroach_tpu_torch.workload.tpch_queries import q1, q1_oracle
 
+    collect = streaming_collect()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     table = gen.table("lineitem")
@@ -1198,7 +1234,295 @@ def run_phase4(torch, gen):
               "host_stages_cold_s": cold_stages,
               "host_stages_warm_s": warm_stages,
               "host_stages_streaming_s": stream_stages}
-    return flow, record, launches
+    return flow, record, launches, res
+
+
+# ------------------------------------------------------------ phase 9
+
+PHASE9 = ("q1",) + PHASE6 + PHASE7 + PHASE8
+# FlowRestarts of each query's fused cold run at SF 1 (every warm run
+# must have none): Q2's and Q16's ShrinkOps and Q4's semi join restart
+# as on the streaming tier (COLD_RESTARTS); Q18's first aggregate takes
+# the int-key route, whose run-ends view cannot overflow; Q16's result
+# (about 18,000 rows) passes the first 8,192-row packed window, which
+# widens once
+COLD_RESTARTS_FUSED = {"q2": 1, "q16": 3, "q4": 1}
+# K1 launches of one fused warm run (one replay), from the tracer's
+# routes at SF 1: the dense GROUP BYs of Q1, Q4, Q5 and Q12 aggregate
+# their materialized input in one call (its rows x bytes fit the JAX
+# tracer's 512 MiB workmem rule); no other query takes the dense route.
+# Phase 9 counts them in a profiler trace of a replay
+FUSED_K1 = {"q1": 1, "q4": 1, "q5": 1, "q12": 1}
+# the aggregate routes the fused tracer takes at SF 1, by query (the JAX
+# tracer's at SF 0.01: the group-join collapse in Q3 and Q18, the
+# int-key GROUP BY in Q15, Q17 and Q18)
+FUSED_ROUTES = {
+    "q1": {"dense": 1}, "q6": {"fold": 1}, "q3": {"groupjoin": 1},
+    "q18": {"int_key": 1, "groupjoin": 1}, "q9": {"mat": 1},
+    "q12": {"dense": 1}, "q14": {"fold": 1}, "q4": {"dense": 1},
+    "q17": {"int_key": 1, "mat": 1}, "q16": {"mat": 2}, "q2": {"mat": 1},
+    "q15": {"int_key": 1, "mat": 1}, "q5": {"dense": 1},
+    "q10": {"mat": 1}, "q19": {"fold": 1}}
+# the events of a run that left the fused tier
+LEFT_FUSED = ("fused.fallback_", "resilience.")
+
+
+def streaming_collect():
+    """exec.collect on the streaming tier (phases 4 and 6 to 8)."""
+    import functools
+
+    from cockroach_tpu_torch.exec.operators import collect
+
+    return functools.partial(collect, fuse=False)
+
+
+def fused_run(torch, flow):
+    """One run of the flow through exec.collect with its default (fused)
+    tier: (result, seconds, restarts, synchronizing calls inside collect,
+    kernel launches, every stage's event count, what the runner did). The
+    launch counts are set to 0 just before the run and read just
+    after."""
+    import warnings
+
+    from cockroach_tpu_torch.exec import stats
+    from cockroach_tpu_torch.exec.operators import collect
+    from cockroach_tpu_torch.ops import cuda_kernels as ck
+
+    for k in ck.KERNELS:
+        k.launches = 0
+    with stats.query_stats() as col, warnings.catch_warnings(
+            record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            t0 = time.perf_counter()
+            res = collect(flow)
+            dt = time.perf_counter() - t0
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    launches = {k.source.stem: k.launches for k in ck.KERNELS}
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    events = {n: st.events for n, st in col.stages.items()}
+    runner = getattr(flow, "_fused_runner", None)
+    last = dict(runner.last) if runner is not None else {}
+    return (res, dt, events.get("flow.restart", 0), syncs, launches, events,
+            last)
+
+
+def left_fused(name, label, events, last) -> None:
+    """Fail unless the run stayed on the fused tier. The one exception is
+    the JAX tracer's own workmem rule, whose reason is printed."""
+    bad = {e: n for e, n in events.items()
+           if any(e.startswith(p) for p in LEFT_FUSED)}
+    if not bad:
+        return
+    why = last.get("unsupported", "")
+    if set(bad) == {"fused.fallback_unsupported"} and "workmem" in why:
+        print(f"  {name} {label}: streaming by the JAX tracer's workmem "
+              f"rule ({why})", flush=True)
+        return
+    raise SystemExit(f"{name} {label}: left the fused tier: {bad} {last}")
+
+
+def kernel_events(trace_path: str, needle: str) -> int:
+    """The device kernels in a torch.profiler chrome trace whose name
+    holds `needle`."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    return sum(1 for e in events
+               if e.get("cat") == "kernel" and needle in e.get("name", ""))
+
+
+def run_phase9(torch, gen, q1_streaming, profile_dir):
+    """The fifteen queries at SF 1, capacity 2^20, every scan resident,
+    through exec.collect's default, the fused tier: per query a cold run
+    (its images borrowed from the scan-image cache, the eager warm-up and
+    the capture) and WARM_RUNS warm runs, each equal to the oracle and to
+    the streaming result of phases 4 to 8, none leaving the fused tier;
+    every warm run one graph replay with at most one synchronizing call,
+    no restart and every image unchanged; one more, traced, replay runs
+    FUSED_K1 dense_sums kernels. -> ({name: JSON record}, flows)."""
+    from cockroach_tpu_torch.workload import tpch_queries as tq
+
+    builders = dict(query_flows(gen), q1=lambda: tq.q1(gen, CAPACITY))
+    print(f"[9] the fifteen queries through the fused tier "
+          f"(collect(flow)): SF {SF}, capacity {CAPACITY}, every scan "
+          f"resident, each query one CUDA graph", flush=True)
+    rf_names = gen.schema("lineitem").dicts["l_returnflag"]
+    ls_names = gen.schema("lineitem").dicts["l_linestatus"]
+    q1_oracle = tq.q1_oracle(gen)
+    oracles = {n: query_oracle(n, gen) for n in PHASE9 if n != "q1"}
+
+    def check(name, label, res):
+        if name == "q1":
+            check_q1(res, q1_oracle, rf_names, ls_names)
+            for c in q1_streaming:
+                if not np.array_equal(np.asarray(res[c]),
+                                      np.asarray(q1_streaming[c])):
+                    raise SystemExit(f"q1 fused {label} differs from the "
+                                     f"streaming result in {c}")
+            return
+        rows = query_rows(name, res)
+        if rows != oracles[name] or rows != STREAMING_ROWS[name]:
+            raise SystemExit(f"{name} fused {label}: {rows[:3]}... differs "
+                             f"from its oracle or its streaming result")
+
+    trace_dir = profile_dir or os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "build", "phase9_traces")
+    os.makedirs(trace_dir, exist_ok=True)
+    records, flows = {}, {}
+    total_pool = 0
+    for name in PHASE9:
+        flow = builders[name]()
+        feed_pregenerated(flow, gen, CAPACITY)
+        make_resident(flow)
+        flows[name] = flow
+        res, cold, cold_r, _y, cold_l, ev, last = fused_run(torch, flow)
+        check(name, "cold run", res)
+        left_fused(name, "cold run", ev, last)
+        if last.get("mode") != "capture":
+            raise SystemExit(f"{name} fused cold run: {last}, expected a "
+                             f"capture")
+        sums = image_checksums(torch, flow)
+        routes, pool_mib = last["routes"], last["pool_bytes"] / 2 ** 20
+        capture_ms = last["capture_s"] * 1e3
+        total_pool += last["pool_bytes"]
+        if routes != FUSED_ROUTES[name]:
+            raise SystemExit(f"{name}: fused routes {routes}, expected "
+                             f"{FUSED_ROUTES[name]}")
+        warm, syncs, launch_runs = [], [], []
+        restarts = [cold_r]
+        for i in range(WARM_RUNS):
+            res, dt, n_r, n_sync, launches, ev, last = fused_run(torch, flow)
+            check(name, f"warm run {i + 1}", res)
+            left_fused(name, f"warm run {i + 1}", ev, last)
+            if (last.get("mode") != "replay" or ev.get("fused.replay") != 1
+                    or ev.get("fused.capture") or ev.get("fused.prime")):
+                raise SystemExit(f"{name} fused warm run {i + 1}: {last}, "
+                                 f"{ev}: expected exactly one replay")
+            if n_sync > 1:
+                raise SystemExit(f"{name} fused warm run {i + 1}: {n_sync} "
+                                 f"synchronizing calls, expected <= 1")
+            warm.append(dt)
+            syncs.append(n_sync)
+            restarts.append(n_r)
+            launch_runs.append(launches)
+        if image_checksums(torch, flow) != sums:
+            raise SystemExit(f"{name}: a resident image changed during the "
+                             f"fused warm runs")
+        want_cold = COLD_RESTARTS_FUSED.get(name, 0)
+        if restarts[0] != want_cold or any(restarts[1:]):
+            raise SystemExit(f"{name}: fused restarts {restarts}, expected "
+                             f"{want_cold} on the cold run and none warm")
+        # what a replay really runs: the kernels of a traced warm run
+        stem = os.path.join(trace_dir, name + "_fused")
+        busy, wall, top, cummax, cummax_calls = trace_query(
+            torch, _fused_collect(), flow, stem)
+        last = flow._fused_runner.last
+        if last.get("mode") != "replay":
+            raise SystemExit(f"{name} fused traced run: {last}, expected a "
+                             f"replay")
+        want_k1 = FUSED_K1.get(name, 0)
+        k1_traced = kernel_events(stem + "_trace.json", DS_KERNEL)
+        n_kernels = kernel_events(stem + "_trace.json", "")
+        counted = {run.get("dense_sums", 0) for run in launch_runs}
+        if k1_traced != want_k1 or counted != {want_k1}:
+            raise SystemExit(f"{name}: a traced replay ran {k1_traced} "
+                             f"dense_sums kernels, the launch counts of the "
+                             f"warm runs say {launch_runs}; expected "
+                             f"{want_k1} (route {routes})")
+        warm_s = statistics.median(warm)
+        print(f"  {name}: fused warm median {warm_s * 1e3:.3f} ms of "
+              f"{[round(w * 1e3, 3) for w in warm]} ms; cold "
+              f"{cold * 1e3:.1f} ms (capture {capture_ms:.1f} ms); "
+              f"restarts per run {restarts}; synchronizing calls per warm "
+              f"run {syncs}; graph pool {pool_mib:.1f} MiB; routes "
+              f"{routes}; dense_sums kernels in a traced replay "
+              f"{k1_traced} of {n_kernels} kernels, counted per warm run "
+              f"{launch_runs[-1]} (cold {cold_l})", flush=True)
+        print(f"  traced fused {name} replay: device busy {busy:.3f} ms of "
+              f"{wall:.3f} ms wall; cummax {cummax:.3f} ms in "
+              f"{cummax_calls} calls; three longest device ops (total ms, "
+              f"count):", flush=True)
+        for op, ms, cnt in top[:3]:
+            print(f"    {ms:9.3f} {cnt:5d}  {op[:110]}")
+        records[name] = {"sf": SF, "capacity": CAPACITY, "fused_cold_s": cold,
+                         "fused_warm_s": warm_s, "fused_warm_runs_s": warm,
+                         "fused_capture_ms": capture_ms,
+                         "fused_restarts": restarts,
+                         "fused_syncs_warm": syncs,
+                         "fused_graph_pool_mib": pool_mib,
+                         "fused_routes": routes,
+                         "fused_kernel_launches": launch_runs[-1],
+                         "fused_k1_traced": k1_traced,
+                         "fused_replay_kernels": n_kernels,
+                         "fused_device_busy_ms": busy,
+                         "fused_traced_wall_ms": wall,
+                         "fused_cummax_ms": cummax,
+                         "fused_cummax_calls": cummax_calls}
+    # every graph shares one memory pool: replay each once more, after
+    # every other capture, and hold it to its oracle again
+    for name, flow in flows.items():
+        res, _dt, n_r, _y, _l, ev, last = fused_run(torch, flow)
+        check(name, "replay after every capture", res)
+        if last.get("mode") != "replay" or n_r:
+            raise SystemExit(f"{name}: {last}, {n_r} restarts on the replay "
+                             f"after every capture")
+    print(f"  phase 9: every query's graph replayed again after every "
+          f"capture, equal to its oracle; graph pools grew "
+          f"{total_pool / 2 ** 20:.1f} MiB in all (one pool, shared); "
+          f"device memory reserved "
+          f"{torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB", flush=True)
+    return records, flows
+
+
+def _fused_collect():
+    from cockroach_tpu_torch.exec.operators import collect
+
+    return collect
+
+
+def fused_dense_shapes(torch, ck, flows, flush):
+    """K1 at the shapes of the fused queries' dense GROUP BYs: one call
+    over each one's materialized input (the fused Q1's is lineitem's
+    6 x 2^20 lanes), held bit for bit against its plain version and
+    timed. -> ({label: shape}, K1's largest difference from its plain
+    version)."""
+    from cockroach_tpu_torch.exec import fused
+    from cockroach_tpu_torch.exec.operators import HashAggOp, walk_operators
+    from cockroach_tpu_torch.ops import agg as agg_ops
+
+    dev = torch.device("cuda")
+    out, worst = {}, 0
+    smem = ck.smem_per_block(dev)
+    for name in FUSED_K1:
+        flow = flows[name]
+        aggs = [op for op in walk_operators(flow)
+                if isinstance(op, HashAggOp) and op.dense_sizes is not None]
+        if len(aggs) != FUSED_K1[name]:
+            raise SystemExit(f"{name}: {len(aggs)} dense GROUP BYs, "
+                             f"expected {FUSED_K1[name]}")
+        images, _vkey = flow._fused_runner._prepare(dev)
+        agg = aggs[0]
+        m = fused._Tracer(images)._mat(agg.child)
+        packed, values, live, d = agg_ops.dense_kernel_inputs(
+            m, agg.group_by, agg.internal, agg.dense_sizes)
+        if len(values) > ck.MAX_COLS:
+            raise SystemExit(f"{name}: {len(values)} dense columns launch "
+                             f"more than one kernel a call")
+        label = name + "_fused"
+        worst = max(worst, check_dense_case(torch, ck, label, packed,
+                                            values, live, d, smem))
+        shape = measure_dense_sums(torch, ck, packed, values, live, d, flush)
+        out[label] = shape
+        print(f"  dense_sums at {label}'s shape N={shape['n']} D={d} "
+              f"K={shape['k']}: kernel_ms {shape['ms']:.4f}, bound_ms "
+              f"{shape['bound_ms']:.4f} ({shape['bound_by']}; kernel at "
+              f"{shape['bound_ms'] / shape['ms']:.1%} of it), plain_ms "
+              f"{shape['plain_ms']:.4f}, library_ms "
+              f"{shape['library_ms']:.4f} (index_add_)", flush=True)
+    return out, worst
 
 
 def main() -> int:
@@ -1214,7 +1538,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
-    from cockroach_tpu_torch.exec.operators import collect
     from cockroach_tpu_torch.ops import agg
     from cockroach_tpu_torch.ops import cuda_kernels as ck
     from cockroach_tpu_torch.workload import tpch
@@ -1255,7 +1578,7 @@ def main() -> int:
 
     # ---- 4. the main path: Q1 SF 1 through the port on CUDA
     gen = tpch.TPCH(sf=SF)
-    flow, q1_record, launches = run_phase4(torch, gen)
+    flow, q1_record, launches, q1_streaming = run_phase4(torch, gen)
 
     # ---- 5. kernels at the main path's shapes
     agg_op = flow.child
@@ -1311,7 +1634,7 @@ def main() -> int:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            collect(flow)
+            streaming_collect()(flow)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
         path = os.path.join(args.profile, "q1_profile.txt")
@@ -1336,6 +1659,14 @@ def main() -> int:
                                              args.profile)
     query_records.update(records8)
     worst = max(worst, worst8)
+    # ---- 9. the fifteen queries through the fused tier, one CUDA graph
+    # each
+    records9, flows9 = run_phase9(torch, gen, q1_streaming, args.profile)
+    q1_record.update(records9.pop("q1"))
+    for name, rec in records9.items():
+        query_records[name].update(rec)
+    fused_shapes, worst9 = fused_dense_shapes(torch, ck, flows9, flush)
+    worst = max(worst, worst9)
 
     kernels = [{
         "name": "dense_sums",
@@ -1346,16 +1677,19 @@ def main() -> int:
         "launches_by_path": {
             "q1": launches["dense_sums"],
             **{q: query_records[q]["kernel_launches"]["dense_sums"]
-               for q in ("q12", "q4", "q5")}},
+               for q in ("q12", "q4", "q5")},
+            **{f"{q}_fused": (q1_record if q == "q1" else query_records[q])[
+                "fused_k1_traced"] for q in FUSED_K1}},
         "max_abs_err": worst,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": q1_shape["bound_by"],
         "library_ms": library_ms,
-        "at_shapes": {"q1": q1_shape, **k1_shapes},
+        "at_shapes": {"q1": q1_shape, **k1_shapes, **fused_shapes},
     }]
-    print(f"[9] whole run {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"[10] whole run {time.perf_counter() - t_start:.1f} s",
+          flush=True)
     print(json.dumps({"q1": q1_record}))
     for name in PHASE6 + PHASE7 + PHASE8:
         print(json.dumps({name: query_records[name]}))

@@ -5,8 +5,10 @@ paths of the fifteen TPC-H queries: ScanOp -> MapOp (filter,
 projection) -> HashAggOp (the dense route, and the sort route with its
 scalar case), OrderedAggOp, JoinOp, ShrinkOp, DistinctOp, SortOp (in
 memory), TopKOp and LimitOp. An operator yields Batches on the device
-that `collect` names; PyTorch runs eagerly, so there is no jit and no
-fused whole-flow program.
+that `collect` names. `run_flow` drives a flow down the degradation
+ladder: the fused whole-query program of exec/fused.py (one CUDA graph
+per query on a card) when the tree fits its grammar, then these
+streaming operators.
 
 No operator reads a device value back to the host inside its batch loop.
 A deferred capacity or correctness check (aggregate overflow, hash
@@ -22,8 +24,9 @@ folds a stream (`agg.fold_stacked`); a JoinOp builds from a whole image
 of several chunks in one pass (`join.build_stacked`).
 
 Not ported yet (ROADMAP.md queue 1): the range-dense GROUP BY, the grace
-(out-of-core) paths of HashAggOp and JoinOp, the external sort, the fused
-runner, and `_read_ahead`, which only the grace join's replay uses.
+(out-of-core) paths of HashAggOp and JoinOp, the external sort, the
+ladder's forced-spill rung, and `_read_ahead`, which only the grace
+join's replay uses.
 """
 
 from __future__ import annotations
@@ -341,6 +344,22 @@ class ScanOp(Operator):
             self._borrow_cached(device)
         return self._stacked
 
+    def prime_image(self, device: torch.device) -> Optional[ScanImage]:
+        """This scan's image on `device` for one fused run (exec/fused.py):
+        the pinned or borrowed image, else one complete pass, which pins
+        the image when the scan is resident and within its budget, and is
+        otherwise stacked for this call only (the JAX package's
+        ScanOp.stacked_image, which pays the copies on every call of a
+        non-resident scan). None for an empty scan."""
+        image = self.stacked_image(device)
+        if image is not None:
+            return image
+        pieces = list(self._raw_stream(device))
+        image = self.stacked_image(device)
+        if image is not None or not pieces:
+            return image
+        return self._stack(device, pieces)
+
     def _raw_stream(self, device: torch.device) -> Iterator:
         """The scan's pieces on `device` as (uint8 buffer, live rows):
         the image's chunks, else a pass that packs and copies (and pins
@@ -406,20 +425,12 @@ class ScanOp(Operator):
         image and its accounting, unless it refuses it."""
         from cockroach_tpu_torch.util.mon import BudgetExceededError
 
-        ms_host = tuple(m for _, m in pieces)
         try:
-            acct.grow(4 * len(ms_host))
+            acct.grow(4 * len(pieces))
         except BudgetExceededError:
             acct.close()
             return
-        pin = device.type == "cuda"
-        with stats.timed("scan.stack", bytes=len(pieces) * self._nbytes):
-            bufs = torch.stack([b for b, _ in pieces])
-            # a pinned source keeps the copy from waiting on the queue
-            ms = torch.tensor(ms_host, dtype=torch.int32)
-            ms = (ms.pin_memory() if pin else ms).to(device,
-                                                     non_blocking=pin)
-        image = ScanImage(bufs, ms, ms_host)
+        image = self._stack(device, pieces)
         if self.cache_key is not None:
             from cockroach_tpu_torch.exec.scan_cache import scan_image_cache
 
@@ -429,6 +440,18 @@ class ScanOp(Operator):
                 acct = None
         self._stacked, self._stacked_account = image, acct
         self._device = device
+
+    def _stack(self, device: torch.device, pieces: list) -> ScanImage:
+        """One ScanImage of a pass's (buffer, live rows) pieces."""
+        ms_host = tuple(m for _, m in pieces)
+        pin = device.type == "cuda"
+        with stats.timed("scan.stack", bytes=len(pieces) * self._nbytes):
+            bufs = torch.stack([b for b, _ in pieces])
+            # a pinned source keeps the copy from waiting on the queue
+            ms = torch.tensor(ms_host, dtype=torch.int32)
+            ms = (ms.pin_memory() if pin else ms).to(device,
+                                                     non_blocking=pin)
+        return ScanImage(bufs, ms, ms_host)
 
     def evict(self):
         """Drop the resident image and release its accounting (a borrowed
@@ -593,6 +616,12 @@ class HashAggOp(Operator):
                                  for a in self.internal)
         self.dense_sizes = (dense_key_sizes(child.schema, self.group_by)
                             if self.group_by else None)
+        # the fused tracer's fast-path ladders (exec/fused.py): the
+        # group-join collapse's key width step, and the int-key GROUP
+        # BY's wide keys and its switch; they ride the fused config key
+        self._gj_bump = 0
+        self._ia_ok = True
+        self._ia_wide = False
 
     def widen(self):
         """FlowRestart remedy: double the accumulator expansion (group
@@ -1068,18 +1097,23 @@ def walk_operators(op: Operator):
 MAX_RESTARTS = 8
 
 
-def run_flow(op: Operator, reset: Callable[[], None],
-             consume: Callable[[Batch], None], device: torch.device) -> None:
-    """Drive the flow to completion on `device`, streaming each output
-    batch to `consume`. On FlowRestart the failed operator widens and the
-    whole flow reruns from the scans (`reset` discards the sink's partial
-    output first), at most MAX_RESTARTS times; each restart counts
-    under the stats stage `flow.restart`."""
+def _run_tier(driver, reset: Callable[[], None],
+              consume: Callable[[Batch], None], device: torch.device) -> None:
+    """Drive one ladder tier to completion: the FlowRestart widening loop
+    (at most MAX_RESTARTS restarts, each counted under the stats stage
+    `flow.restart`), plus in-place retries of transient (RETRYABLE)
+    faults under the sql.resilience backoff policy. RESOURCE and TERMINAL
+    errors propagate to the ladder, which decides whether a cheaper tier
+    exists."""
+    from cockroach_tpu_torch.util import retry as _retry
+
+    opts = _retry.options_from_settings()
+    backoffs = opts.backoffs()
     restarts = 0
     while True:
         reset()
         try:
-            for b in op.batches(device):
+            for b in driver.batches(device):
                 consume(b)
             return
         except FlowRestart as fr:
@@ -1088,6 +1122,74 @@ def run_flow(op: Operator, reset: Callable[[], None],
             restarts += 1
             stats.add("flow.restart")
             fr.op.widen()
+        except Exception as e:  # noqa: BLE001 — the classifier decides
+            if _retry.classify(e) != _retry.RETRYABLE:
+                raise
+            pause = next(backoffs, None)
+            if pause is None:
+                raise  # retry budget exhausted: the ladder steps down
+            _retry.record_retry("flow", pause)
+            opts.sleep(pause)
+
+
+def run_flow(op: Operator, reset: Callable[[], None],
+             consume: Callable[[Batch], None], device: torch.device,
+             fuse: bool = True) -> None:
+    """Drive the flow to completion on `device`, streaming each output
+    batch to `consume`, down the degradation ladder: the fused whole-query
+    program (exec/fused.py) when the tree fits its grammar and `fuse` is
+    set, then the streaming operators. Within a tier, on FlowRestart the
+    failed operator widens and the whole flow reruns from the scans
+    (`reset` discards the sink's partial output first). Each rung has a
+    process-wide circuit breaker (util/circuit.py): a tier that keeps
+    failing trips open, and later queries skip past it. A RESOURCE error
+    (device memory) steps down one rung and counts
+    `resilience.degrade.<tier>`; a TERMINAL error (a CUDA fault, a logic
+    error) propagates from any rung. The JAX package's third rung, the
+    forced spill, comes with the out-of-core paths (ROADMAP.md queue 1,
+    item 3)."""
+    from cockroach_tpu_torch.util import circuit as _circuit
+    from cockroach_tpu_torch.util import retry as _retry
+
+    tiers: List[Tuple[str, object]] = []
+    if fuse:
+        from cockroach_tpu_torch.exec import fused as _fused
+
+        # the runner is cached on the root: its captured graphs are what
+        # make repeat runs of one flow replays
+        runner = getattr(op, "_fused_runner", None)
+        if runner is None:
+            runner = _fused.try_compile(op)
+            op._fused_runner = runner
+        if runner is not None:
+            tiers.append(("fused", runner))
+    tiers.append(("streaming", op))
+
+    for i, (tier, driver) in enumerate(tiers):
+        last_tier = i == len(tiers) - 1
+        br = _circuit.breaker("flow." + tier)
+        if not br.allow():
+            if not last_tier:
+                stats.add(f"resilience.skip.{tier}")
+                continue
+            # every rung is tripped but the query still has to run: the
+            # final rung runs as a forced probe
+            stats.add(f"resilience.forced.{tier}")
+        try:
+            _run_tier(driver, reset, consume, device)
+        except FlowRestart:
+            # widening exhausted: every tier runs the same plan shapes
+            raise
+        except Exception as e:  # noqa: BLE001 — the classifier decides
+            if _retry.classify(e) == _retry.TERMINAL:
+                raise
+            br.failure()
+            if last_tier:
+                raise
+            stats.add(f"resilience.degrade.{tier}")
+            continue
+        br.success()
+        return
 
 
 def assemble_wide_sums(result: Dict[str, np.ndarray]) -> None:
@@ -1106,11 +1208,14 @@ def assemble_wide_sums(result: Dict[str, np.ndarray]) -> None:
         result[base + "__valid"] = result[name + "__valid"]
 
 
-def collect(op: Operator, device=None) -> Dict[str, np.ndarray]:
+def collect(op: Operator, device=None,
+            fuse: bool = True) -> Dict[str, np.ndarray]:
     """Run the flow on `device` (CUDA unless the caller passes one; raises
     without CUDA) and return host numpy columns, compacted, each with a
-    `<col>__valid` sidecar. Wide-sum column pairs are recombined into
-    exact Python-int columns."""
+    `<col>__valid` sidecar. With `fuse` (the JAX package's default) the
+    flow runs as the fused whole-query program where its tree allows,
+    else through the streaming operators (run_flow's ladder). Wide-sum
+    column pairs are recombined into exact Python-int columns."""
     dev = resolve_device(device)
     outs: Dict[str, List[np.ndarray]] = {}
     valids: Dict[str, List[np.ndarray]] = {}
@@ -1129,7 +1234,7 @@ def collect(op: Operator, device=None) -> Dict[str, np.ndarray]:
                  else c.validity.cpu().numpy()[sel])
             valids[f.name].append(v)
 
-    run_flow(op, reset, consume, dev)
+    run_flow(op, reset, consume, dev, fuse=fuse)
     result = {}
     for f in op.schema:
         result[f.name] = (np.concatenate(outs[f.name])

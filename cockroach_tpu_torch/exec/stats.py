@@ -23,6 +23,18 @@ device attribution trace a run with torch.profiler (chip_smoke.py
   join.build      a join's build side: compaction, repack, prepare
   shrink          a ShrinkOp's concatenation and compaction
   flow.restart    one event per FlowRestart rerun of the flow
+  fused.prime     stacking the scans' images for a fused run
+  prime.skipped   a fused run whose every image was resident (an event)
+  fused.exec      an eager run of the fused program
+  fused.capture   the capture of its CUDA graph (after an eager warm-up)
+  fused.replay    one replay of the graph
+  fused.readback  the copy of the packed result to the host
+  fused.fallback_unsupported / fused.fallback_result
+                  a fused run handed to the streaming operators
+  resilience.degrade.<tier> / .skip.<tier> / .forced.<tier> /
+  resilience.retry.<name>
+                  the degradation ladder's steps (exec/operators.py
+                  run_flow) and in-place retries (util/retry.py)
 
 Zero overhead when disabled (module flag checked per call site).
 """

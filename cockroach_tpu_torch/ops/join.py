@@ -141,7 +141,9 @@ def _scatter_flags(n: int, at: torch.Tensor,
     drop)."""
     idx = torch.where(hit, at.to(torch.int64), n)
     flags = torch.zeros(n + 1, dtype=torch.bool, device=at.device)
-    flags[idx] = True
+    # a fill of the indexed lanes: no copy of a host value, so a CUDA
+    # graph can capture it
+    flags.index_fill_(0, idx, True)
     return flags[:n]
 
 

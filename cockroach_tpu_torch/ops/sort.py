@@ -15,8 +15,9 @@ first. top_k_batch sorts the keys and moves only the k winning rows.
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
-from typing import List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -49,14 +50,44 @@ def _sortable_int(values: torch.Tensor) -> torch.Tensor:
     return values.to(torch.int64)
 
 
+# (id of the dictionary, device) -> (the dictionary, its rank table on
+# the device): built and copied once, as ops/expr.py `_table` caches an
+# operator's tables. Holding the dictionary keeps its id from being
+# reused.
+_RANK_TABLES: Dict[tuple, tuple] = {}
+_RANK_TABLES_MAX = 256
+# A CUDA graph that captured a sort reads its rank table by address,
+# past the cache's eviction: while `_HOLD.into` is a list, every table
+# handed out is appended to it, and the graph's holder keeps the list.
+_HOLD = threading.local()
+
+
+def hold_rank_tables(into: Optional[list]) -> None:
+    """Append every rank table handed out on this thread to `into` until
+    the next call (None stops)."""
+    _HOLD.into = into
+
+
 def _string_rank_table(schema, name, device):
     """Lexicographic rank of each dictionary code (codes are assigned in
     first-occurrence order, so ORDER BY must not compare them directly)."""
     d = schema.dictionary(name)
     if d is None:
         return None
-    rank = np.argsort(np.argsort(d.astype(str))).astype(np.int32)
-    return torch.from_numpy(rank).to(device)
+    key = (id(d), str(torch.device(device)))
+    hit = _RANK_TABLES.get(key)
+    if hit is not None and hit[0] is d:
+        table = hit[1]
+    else:
+        rank = np.argsort(np.argsort(d.astype(str))).astype(np.int32)
+        table = torch.from_numpy(rank).to(device)
+        if len(_RANK_TABLES) >= _RANK_TABLES_MAX:
+            _RANK_TABLES.pop(next(iter(_RANK_TABLES)))
+        _RANK_TABLES[key] = (d, table)
+    into = getattr(_HOLD, "into", None)
+    if into is not None:
+        into.append(table)
+    return table
 
 
 def lex_keys(batch: Batch, keys: Sequence[SortKey], schema=None) -> List[torch.Tensor]:

@@ -18,8 +18,9 @@
    side is MapOp* -> ScanOp has its `_materialize_build` timed alone both
    ways, in N alternating pairs.
 
-Every run of an arm must equal the first run of the other arm, array for
-array. Times are host wall-clock seconds to the end of the run after a
+Both comparisons run the streaming tier (`collect(..., fuse=False)`),
+whose scan and build paths they time. Every run of an arm must equal the
+first run of the other arm, array for array. Times are host wall-clock seconds to the end of the run after a
 torch.cuda.synchronize(). Prints the card line, one line per query and
 join with each arm's median and the median of the per-pair ratios, and
 last a JSON object of every time.
@@ -109,7 +110,7 @@ def main() -> int:
     def timer(flow, results):
         def run():
             t = time.perf_counter()
-            res = ops.collect(flow)
+            res = ops.collect(flow, fuse=False)
             torch.cuda.synchronize()
             dt = time.perf_counter() - t
             results.append(res)
@@ -148,7 +149,7 @@ def main() -> int:
     for name in JOINS:
         flow = fresh(name)
         cs.make_resident(flow)
-        ops.collect(flow)  # cold: pins every image
+        ops.collect(flow, fuse=False)  # cold: pins every image
         joins = [j for j in ops.walk_operators(flow)
                  if isinstance(j, ops.JoinOp)
                  and ops._source_scan(j.build) is not None]

@@ -113,7 +113,7 @@ def test_decorrelate_matches_jax(gens, name):
     assert (tplan._plan_columns(tp, tcat)
             == jplan._plan_columns(jp, jcat))
     want = jcollect(jplan.build(jp, jcat, CAPACITY), fuse=False)
-    got = tcollect(tplan.build(tp, tcat, CAPACITY), device="cpu")
+    got = tcollect(tplan.build(tp, tcat, CAPACITY), device="cpu", fuse=False)
     _assert_equal_results(want, got)
     assert len(got[next(iter(got))]) > 0
 
@@ -122,7 +122,7 @@ def test_scalar_apply_surfaces_empty_groups_as_null(gens):
     _jgen, tgen = gens
     tp = _plan_pair(PLANS["scalar_empty_groups"])[1]
     got = tcollect(tplan.build(tp, tplan.TPCHCatalog(tgen), CAPACITY),
-                   device="cpu")
+                   device="cpu", fuse=False)
     valid = got["max_price__valid"]
     assert 0 < valid.sum() < len(valid)
     assert list(got) == ["c_custkey", "c_custkey__valid", "c_acctbal",
@@ -130,7 +130,7 @@ def test_scalar_apply_surfaces_empty_groups_as_null(gens):
                          "max_price__valid"]
     tp = _plan_pair(PLANS["scalar_empty_groups_filtered"])[1]
     kept = tcollect(tplan.build(tp, tplan.TPCHCatalog(tgen), CAPACITY),
-                    device="cpu")
+                    device="cpu", fuse=False)
     assert kept["max_price__valid"].all()
     assert 0 < len(kept["c_custkey"]) < valid.sum()
 
@@ -143,7 +143,7 @@ def test_uncorrelated_scalar_of_nothing(gens, func, want_valid):
             else "uncorrelated_count_of_nothing")
     tp = _plan_pair(PLANS[name])[1]
     got = tcollect(tplan.build(tp, tplan.TPCHCatalog(tgen), CAPACITY),
-                   device="cpu")
+                   device="cpu", fuse=False)
     assert len(got["n_nationkey"]) == 25
     assert got["s__valid"].tolist() == [want_valid] * 25
     if want_valid:
@@ -195,7 +195,7 @@ def test_distinct_matches_jax(gens, keys):
     assert isinstance(flow, DistinctOp)
     assert list(walk_operators(flow))[1] is flow._agg
     want = jcollect(jplan.build(jp, jcat, CAPACITY), fuse=False)
-    got = tcollect(flow, device="cpu")
+    got = tcollect(flow, device="cpu", fuse=False)
     _assert_equal_results(want, got)
     n = len(got["l_returnflag"])
     assert n == (4 if keys else len(set(zip(
@@ -245,7 +245,7 @@ def test_q17_shrink_restarts_once_and_matches(gens):
     shrinks[0].capacity = 64
     want = jcollect(jflow, fuse=False)
     with stats.query_stats() as col:
-        got = tcollect(tflow, device="cpu")
+        got = tcollect(tflow, device="cpu", fuse=False)
     _assert_equal_results(want, got)
     assert col.stages["flow.restart"].events == 1
     assert shrinks[0].capacity == 64 * 16

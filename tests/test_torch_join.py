@@ -201,7 +201,7 @@ def test_streaming_join_restart_ladder_matches_jax(how):
     top = tops.JoinOp(tp, tb, ["pk"], ["bk"], how=how)
     want = jcollect(jop, fuse=False)
     with stats.query_stats() as col:
-        got = tcollect(top, device="cpu")
+        got = tcollect(top, device="cpu", fuse=False)
     assert list(got) == list(want)
     for name in want:
         np.testing.assert_array_equal(got[name], want[name], err_msg=name)

@@ -25,7 +25,7 @@ CAPACITY = 1 << 14
 def q1_results():
     jgen, tgen = jtpch.TPCH(sf=SF), ttpch.TPCH(sf=SF)
     want = jcollect(jq.q1(jgen, CAPACITY), fuse=False)
-    got = tcollect(tq.q1(tgen, CAPACITY), device="cpu")
+    got = tcollect(tq.q1(tgen, CAPACITY), device="cpu", fuse=False)
     return want, got, jq.q1_oracle(jgen), tgen
 
 
@@ -101,8 +101,8 @@ def test_q1_wide_sum_recombines(monkeypatch):
     """Past SF 40 the plan asks for the wide (hi/lo) charge sum; the port
     recombines it exactly. Forced here at SF 0.01 by the plan's rule."""
     gen = ttpch.TPCH(sf=SF)
-    plain = tcollect(tq.q1(gen, CAPACITY), device="cpu")
+    plain = tcollect(tq.q1(gen, CAPACITY), device="cpu", fuse=False)
     monkeypatch.setattr(gen, "sf", 41.0)
-    wide = tcollect(tq.q1(gen, CAPACITY), device="cpu")
+    wide = tcollect(tq.q1(gen, CAPACITY), device="cpu", fuse=False)
     assert [int(x) for x in wide["sum_charge"]] == \
         [int(x) for x in plain["sum_charge"]]

@@ -48,7 +48,7 @@ def _run(name, gens, capacity):
     jflow, tflow = QUERIES[name]
     want = jcollect(jflow(jgen, capacity), fuse=False)
     with stats.query_stats() as col:
-        got = tcollect(tflow(tgen, capacity), device="cpu")
+        got = tcollect(tflow(tgen, capacity), device="cpu", fuse=False)
     return want, got, col
 
 
@@ -73,9 +73,9 @@ def test_query_on_card_matches_cpu(gens, name):
         pytest.skip("needs a CUDA card (chip_smoke.py phase 6 runs the "
                     "queries at SF 1 there)")
     build = QUERIES[name][1]
-    cpu = tcollect(build(gens[1], CAPACITY), device="cpu")
+    cpu = tcollect(build(gens[1], CAPACITY), device="cpu", fuse=False)
     with stats.query_stats() as col:
-        card = tcollect(build(gens[1], CAPACITY), device="cuda")
+        card = tcollect(build(gens[1], CAPACITY), device="cuda", fuse=False)
     _assert_equal_results(cpu, card)
     assert "flow.restart" not in col.stages
 
@@ -134,9 +134,9 @@ def test_q18_restarts_on_overflow_and_matches(gens):
     assert col.stages["flow.restart"].events == 2
     # a widened flow keeps its expansion: a second run restarts no more
     tflow = tq.q18(gens[1], Q18_THRESHOLD, 1 << 12)
-    tcollect(tflow, device="cpu")
+    tcollect(tflow, device="cpu", fuse=False)
     with stats.query_stats() as again:
-        tcollect(tflow, device="cpu")
+        tcollect(tflow, device="cpu", fuse=False)
     assert "flow.restart" not in again.stages
 
 
@@ -206,13 +206,13 @@ def test_past_workmem_raises_naming_roadmap(gens):
         if isinstance(op, HashAggOp) and op.group_by == ["l_orderkey"]:
             op.workmem = 1 << 10
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcollect(flow, device="cpu")
+        tcollect(flow, device="cpu", fuse=False)
     flow = tq.q3(tgen, CAPACITY)
     for op in walk_operators(flow):
         if isinstance(op, JoinOp):
             op.workmem = 1 << 10
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcollect(flow, device="cpu")
+        tcollect(flow, device="cpu", fuse=False)
 
 
 def test_empty_scalar_aggregate_emits_one_row(gens):
@@ -234,7 +234,7 @@ def test_empty_scalar_aggregate_emits_one_row(gens):
     want = jcollect(jplan.build(jp, jplan.TPCHCatalog(jgen), CAPACITY),
                     fuse=False)
     got = tcollect(tplan.build(tp, tplan.TPCHCatalog(tgen), CAPACITY),
-                   device="cpu")
+                   device="cpu", fuse=False)
     _assert_equal_results(want, got)
     assert got["revenue__valid"].tolist() == [False]
 
@@ -267,7 +267,7 @@ def test_limit_matches_jax(gens, n, offset):
                     fuse=False)
     flow = tplan.build(tp, tplan.TPCHCatalog(tgen), 1 << 12)
     assert type(flow).__name__ == "LimitOp"
-    _assert_equal_results(want, tcollect(flow, device="cpu"))
+    _assert_equal_results(want, tcollect(flow, device="cpu", fuse=False))
 
 
 def test_ordered_aggregate_plan_matches_jax(gens):
@@ -289,4 +289,4 @@ def test_ordered_aggregate_plan_matches_jax(gens):
                     fuse=False)
     flow = tplan.build(tp, tplan.TPCHCatalog(tgen), 1 << 13)
     assert type(flow).__name__ == "OrderedAggOp"
-    _assert_equal_results(want, tcollect(flow, device="cpu"))
+    _assert_equal_results(want, tcollect(flow, device="cpu", fuse=False))

@@ -48,7 +48,8 @@ def _run(name, gens):
     jgen, tgen = gens
     want = jcollect(getattr(jq, name)(jgen, CAPACITY), fuse=False)
     with stats.query_stats() as col:
-        got = tcollect(getattr(tq, name)(tgen, CAPACITY), device="cpu")
+        got = tcollect(getattr(tq, name)(tgen, CAPACITY), device="cpu",
+                       fuse=False)
     return want, got, col
 
 
@@ -159,7 +160,7 @@ def test_query_on_card_matches_cpu(gens, name):
         pytest.skip("needs a CUDA card (chip_smoke.py phase 8 runs the "
                     "queries at SF 1 there)")
     build = getattr(tq, name)
-    cpu = tcollect(build(gens[1], CAPACITY), device="cpu")
-    card = tcollect(build(gens[1], CAPACITY), device="cuda")
+    cpu = tcollect(build(gens[1], CAPACITY), device="cpu", fuse=False)
+    card = tcollect(build(gens[1], CAPACITY), device="cuda", fuse=False)
     _assert_equal_results(cpu, card)
     assert all(np.asarray(v).size for v in card.values())

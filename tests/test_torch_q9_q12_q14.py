@@ -53,7 +53,7 @@ def _run(name, gens, capacity, shrink_capacity=None):
                 op.capacity = shrink_capacity
     want = jcollect(jflow, fuse=False)
     with stats.query_stats() as col:
-        got = tcollect(tflow, device="cpu")
+        got = tcollect(tflow, device="cpu", fuse=False)
     return want, got, col, tflow
 
 
@@ -133,7 +133,7 @@ def test_q9_shrink_restarts_widens_and_matches(gens):
     assert shrink.capacity == 256 * 16
     # the widened flow keeps its capacity: a second run restarts no more
     with stats.query_stats() as again:
-        _assert_equal_results(got, tcollect(tflow, device="cpu"))
+        _assert_equal_results(got, tcollect(tflow, device="cpu", fuse=False))
     assert "flow.restart" not in again.stages
 
 
@@ -171,7 +171,7 @@ def test_query_on_card_matches_cpu(gens, name):
         pytest.skip("needs a CUDA card (chip_smoke.py phase 7 runs the "
                     "queries at SF 1 there)")
     build = getattr(tq, name)
-    cpu = tcollect(build(gens[1], CAPACITY), device="cpu")
-    card = tcollect(build(gens[1], CAPACITY), device="cuda")
+    cpu = tcollect(build(gens[1], CAPACITY), device="cpu", fuse=False)
+    card = tcollect(build(gens[1], CAPACITY), device="cuda", fuse=False)
     _assert_equal_results(cpu, card)
     assert all(np.asarray(v).size for v in card.values())

@@ -168,20 +168,20 @@ def test_resident_scan_caches_and_accounts():
     op, calls = _int_scan(tops, {"k": np.arange(100, dtype=np.int64)}, 32,
                           resident=True, monitor=mon)
     agg = tops.HashAggOp(op, [], [AggSpec("sum", "k", "s")])
-    r1 = tcollect(agg, device="cpu")
+    r1 = tcollect(agg, device="cpu", fuse=False)
     assert calls["n"] == 1
     # one image: four pieces of 32 rows and their four row counts
     assert op._stacked.bufs.shape == (4, op._nbytes)
     assert mon.used == 4 * op._nbytes + 4 * 4
     with stats.query_stats() as col:
-        r2 = tcollect(agg, device="cpu")
+        r2 = tcollect(agg, device="cpu", fuse=False)
     assert calls["n"] == 1  # served from the resident image
     assert _stage(col, "scan.pack") == 0
     assert _stage(col, "agg.fold_stacked") == 1
     assert r1["s"][0] == r2["s"][0] == 4950
     op.evict()
     assert mon.used == 0
-    tcollect(agg, device="cpu")
+    tcollect(agg, device="cpu", fuse=False)
     assert calls["n"] == 2  # evicted => re-streams
 
 
@@ -192,10 +192,10 @@ def test_resident_scan_respects_budget():
     op, calls = _int_scan(tops, {"k": np.arange(100, dtype=np.int64)}, 32,
                           resident=True, monitor=mon)
     agg = tops.HashAggOp(op, [], [AggSpec("count_star", None, "n")])
-    assert tcollect(agg, device="cpu")["n"][0] == 100
+    assert tcollect(agg, device="cpu", fuse=False)["n"][0] == 100
     assert op._stacked is None
     assert mon.used == 0
-    assert tcollect(agg, device="cpu")["n"][0] == 100
+    assert tcollect(agg, device="cpu", fuse=False)["n"][0] == 100
     assert calls["n"] == 2
 
 
@@ -213,7 +213,7 @@ def test_image_takes_over_the_pass_account(slack):
     cols = []
     for _ in range(3):
         with stats.query_stats() as col:
-            assert tcollect(agg, device="cpu")["s"][0] == 4950
+            assert tcollect(agg, device="cpu", fuse=False)["s"][0] == 4950
         cols.append(col)
     stacks = [_stage(c, "scan.stack") for c in cols]
     packs = [_stage(c, "scan.pack") for c in cols]
@@ -232,7 +232,7 @@ def test_limit_pins_no_prefix():
     mon = tmon.BytesMonitor("test-hbm", budget=1 << 20)
     data = {"k": np.arange(4096, dtype=np.int64)}
     op, calls = _int_scan(tops, data, 256, resident=True, monitor=mon)
-    out = tcollect(tops.LimitOp(op, 10), device="cpu")
+    out = tcollect(tops.LimitOp(op, 10), device="cpu", fuse=False)
     assert out["k"].tolist() == list(range(10))
     assert op._stacked is None and mon.used == 0
 
@@ -351,13 +351,14 @@ def test_stacked_fold_matches_jax(kind):
     restart on the cold run, as streaming has."""
     tflow, jflow = _agg_flow(tops, kind, True), _agg_flow(jops, kind, True)
     with stats.query_stats() as streaming:
-        streamed = tcollect(_agg_flow(tops, kind, False), device="cpu")
+        streamed = tcollect(_agg_flow(tops, kind, False), device="cpu",
+                            fuse=False)
     restarts = _stage(streaming, "flow.restart")
     assert (restarts > 0) == (kind == "overflow")
     with stats.query_stats() as cold:
-        tcollect(tflow, device="cpu")
+        tcollect(tflow, device="cpu", fuse=False)
     with stats.query_stats() as warm:
-        got = tcollect(tflow, device="cpu")
+        got = tcollect(tflow, device="cpu", fuse=False)
     jcollect(jflow, fuse=False)
     jcol = jstats.enable()
     try:
@@ -416,7 +417,7 @@ def test_stacked_build_matches_chunked_and_jax(capacity, chunks):
     nothing to concatenate), and the join's result equals the JAX
     package's resident run."""
     tflow, tjoin = _join_flows(tops, True, capacity)
-    tcollect(tflow, device="cpu")
+    tcollect(tflow, device="cpu", fuse=False)
     build_scan = tops._source_scan(tjoin.build)[1]
     assert len(build_scan.stacked_image(CPU).ms_host) == chunks
     stacked = int(chunks > 1)
@@ -432,10 +433,11 @@ def test_stacked_build_matches_chunked_and_jax(capacity, chunks):
         else:
             np.testing.assert_array_equal(got_build[k], want_build[k], k)
     with stats.query_stats() as warm:
-        got = tcollect(tflow, device="cpu")
+        got = tcollect(tflow, device="cpu", fuse=False)
     assert _stage(warm, "join.build_stacked") == stacked
     assert _stage(warm, "scan.pack") == 0
-    _assert_equal_results(tcollect(chunked_flow, device="cpu"), got)
+    _assert_equal_results(tcollect(chunked_flow, device="cpu",
+                                   fuse=False), got)
     jflow, _ = _join_flows(jops, True, capacity)
     jcollect(jflow, fuse=False)
     jcol = jstats.enable()
@@ -451,11 +453,11 @@ def test_stacked_build_declines_past_workmem():
     """A build that could pass workmem takes the chunked path, which
     raises: the grace join is not ported."""
     tflow, tjoin = _join_flows(tops, True)
-    tcollect(tflow, device="cpu")
+    tcollect(tflow, device="cpu", fuse=False)
     tjoin.workmem = 1000
     with stats.query_stats() as col, pytest.raises(
             NotImplementedError, match="grace"):
-        tcollect(tflow, device="cpu")
+        tcollect(tflow, device="cpu", fuse=False)
     assert _stage(col, "join.build_stacked") == 0
 
 
@@ -512,11 +514,11 @@ def test_image_bytes_unchanged_by_runs(name):
     gen = ttpch.TPCH(sf=SF)
     flow = getattr(tq, name)(gen, CAPACITY)
     _make_resident(flow, tops.ScanOp)
-    first = tcollect(flow, device="cpu")
+    first = tcollect(flow, device="cpu", fuse=False)
     before = _image_bytes(flow)
     assert before and len(before) == len(walk(flow, tops.ScanOp))
     for _ in range(3):
-        _assert_equal_results(first, tcollect(flow, device="cpu"))
+        _assert_equal_results(first, tcollect(flow, device="cpu", fuse=False))
     after = _image_bytes(flow)
     assert all(torch.equal(before[k], after[k]) for k in before)
 
@@ -528,10 +530,10 @@ def test_fresh_plan_build_borrows_the_image():
     gen = ttpch.TPCH(sf=SF)
     flow = tq.q3(gen, CAPACITY)
     _make_resident(flow, tops.ScanOp)
-    want = tcollect(flow, device="cpu")
+    want = tcollect(flow, device="cpu", fuse=False)
     fresh = tq.q3(ttpch.TPCH(sf=SF), CAPACITY)
     with stats.query_stats() as col:
-        got = tcollect(fresh, device="cpu")
+        got = tcollect(fresh, device="cpu", fuse=False)
     _assert_equal_results(want, got)
     assert _stage(col, "scan.cache_hit") >= len(walk(fresh, tops.ScanOp))
     assert _stage(col, "scan.pack") == 0
@@ -610,13 +612,14 @@ def test_query_resident_equals_streaming(tgen, name):
     for bit and pack nothing. Q15's shared revenue subplan reads the
     image its first pull pinned, so even the cold run packs each table
     once."""
-    streamed = tcollect(_query(tq, name, tgen), device="cpu")
+    streamed = tcollect(_query(tq, name, tgen), device="cpu", fuse=False)
     tscan_cache.scan_image_cache().clear()
     flow = _query(tq, name, tgen)
     _make_resident(flow, tops.ScanOp)
     scans = walk(flow, tops.ScanOp)
     with stats.query_stats() as cold:
-        _assert_equal_results(streamed, tcollect(flow, device="cpu"))
+        _assert_equal_results(streamed, tcollect(flow, device="cpu",
+                                                 fuse=False))
     n_chunks = {}
     for s in scans:
         n = -(-tgen.num_rows(s.table) // CAPACITY)
@@ -628,7 +631,8 @@ def test_query_resident_equals_streaming(tgen, name):
         assert _stage(cold, "scan.pack") == sum(n_chunks.values())
     for _ in range(2):
         with stats.query_stats() as warm:
-            _assert_equal_results(streamed, tcollect(flow, device="cpu"))
+            _assert_equal_results(streamed, tcollect(flow, device="cpu",
+                                                     fuse=False))
         assert _stage(warm, "scan.pack") == 0
         assert _stage(warm, "scan.transfer") == 0
         assert _stage(warm, "flow.restart") == 0
@@ -642,8 +646,8 @@ def test_query_resident_matches_jax_resident(tgen, name):
     want = jcollect(jflow, fuse=False)
     flow = _query(tq, name, tgen)
     _make_resident(flow, tops.ScanOp)
-    tcollect(flow, device="cpu")
-    _assert_equal_results(want, tcollect(flow, device="cpu"))
+    tcollect(flow, device="cpu", fuse=False)
+    _assert_equal_results(want, tcollect(flow, device="cpu", fuse=False))
 
 
 # ------------------------------------------------------ on the card
@@ -653,11 +657,11 @@ def test_query_resident_matches_jax_resident(tgen, name):
 def test_stacked_fold_on_card(kind):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    want = tcollect(_agg_flow(tops, kind, False), device="cpu")
+    want = tcollect(_agg_flow(tops, kind, False), device="cpu", fuse=False)
     flow = _agg_flow(tops, kind, True)
-    tcollect(flow, device="cuda")
+    tcollect(flow, device="cuda", fuse=False)
     with stats.query_stats() as warm:
-        got = tcollect(flow, device="cuda")
+        got = tcollect(flow, device="cuda", fuse=False)
     _assert_equal_results(want, got)
     assert _stage(warm, "agg.fold_stacked") == 1
     assert _stage(warm, "scan.pack") == 0
@@ -668,11 +672,11 @@ def test_stacked_build_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     chunked_flow, _ = _join_flows(tops, False)
-    want = tcollect(chunked_flow, device="cpu")
+    want = tcollect(chunked_flow, device="cpu", fuse=False)
     flow, _ = _join_flows(tops, True)
-    tcollect(flow, device="cuda")
+    tcollect(flow, device="cuda", fuse=False)
     with stats.query_stats() as warm:
-        got = tcollect(flow, device="cuda")
+        got = tcollect(flow, device="cuda", fuse=False)
     _assert_equal_results(want, got)
     assert _stage(warm, "join.build_stacked") == 1
     assert _stage(warm, "scan.pack") == 0
