@@ -100,12 +100,38 @@ Phases, each printed on lines of its own:
      the fused warm median and every warm time, the cold time, the
      capture ms, the restarts per run, the syncs, the graph pool's
      growth, the routes, and the traced replay's device busy ms, kernel
-     count, cummax total and three longest device ops. Then the whole
-     run's seconds, one JSON line per query (Q1 and phases 6 to 9), the
-     JSON line of kernels (dense_sums' launches in the Q1 run, by path:
-     Q1, Q12, Q4 and Q5, and in the traced fused replays of Q1, Q4, Q5
-     and Q12; its times at Q1's, Q4's and Q5's shapes and at the fused
-     queries' shapes), the card line and, last, the result line.
+     count, cummax total and three longest device ops, and the joins
+     whose unique build took the payload carry;
+ 10. the out-of-core paths at SF 1, capacity 2^20, on streaming flows
+     (data generated off the clock, the scan-image cache off), every run
+     equal to its oracle and to its rows from phases 6-7, with the
+     host-spill monitor back at 0 and no spill file left after it:
+     (a) Q18 (threshold 300) with every operator at 32 MiB, the spill
+     rung's budget (agg.grace_spill), (b) Q18 at 4 MiB (agg.grace_spill,
+     join.grace_spill twice), (c) Q9 at 8 MiB (join.grace_spill), a cold
+     run and 2 more each, printing the wall time, the spill rows and
+     bytes written and replayed, the host ms of partitioning, device
+     runs, the host merge and replay, and the device memory peak beside
+     the same query's unbounded streaming run; Q9 at 8 MiB with the
+     build replay's read-ahead on and off in alternating pairs; (d) an
+     external sort of every lineitem row (ORDER BY l_shipdate,
+     l_orderkey DESC, l_linenumber, l_quantity carried) at 32 MiB, equal
+     to numpy's stable lexsort (one external spill, at least 2 device
+     runs, one host merge); (e) Q3 whose streaming tier raises
+     torch.cuda.OutOfMemoryError until the spill rung clamps its
+     workmem: resilience.degrade.streaming, every workmem restored; (f)
+     Q18 at 32 MiB through collect(flow): the fused tracer declines on
+     its workmem rule, the streaming operators complete through the
+     grace paths; (g) the range-dense GROUP BY against the sort route at
+     Q17's per-part and Q18's first GROUP BY (10 alternating pairs),
+     merge_join against hash_join at Q3's orders x lineitem join, and Q3
+     built with sql.tpu.invariants on.
+Then the whole run's seconds (`[11]`), one JSON line per query (Q1 and
+phases 6 to 9), phase 10's JSON line, the JSON line of kernels
+(dense_sums' launches in the Q1 run, by path: Q1, Q12, Q4 and Q5, and in
+the traced fused replays of Q1, Q4, Q5 and Q12; its times at Q1's, Q4's
+and Q5's shapes and at the fused queries' shapes), the card line and,
+last, the result line.
 
 Phase 2 fails if ptxas reports spills in dense_sums' Q1 instantiation,
 or if its SASS (cuobjdump -sass) holds a shared-memory atomic (ATOMS).
@@ -486,9 +512,9 @@ PHASE_TABLES = {6: ("customer", "orders", "lineitem"),
 # - Q16's ShrinkOp over partsupp x the parts kept starts at 2^12 and sees
 #   about 120,000 rows: two restarts, to 2^16 and then 2^20;
 # - Q4's semi join builds on late lineitems, whose l_orderkey repeats:
-#   the unique-mat build flags it and widens to expand;
+#   the build flags it twice, widening unique -> unique-mat -> expand;
 # every other Shrink start capacity exceeds its real row count at SF 1
-COLD_RESTARTS = {"q18": 1, "q2": 1, "q16": 2, "q4": 1}
+COLD_RESTARTS = {"q18": 1, "q2": 1, "q16": 2, "q4": 2}
 # each query's rows from its streaming runs (phases 6 to 8), which phase
 # 9's fused runs must equal
 STREAMING_ROWS: dict = {}
@@ -717,7 +743,7 @@ def layer_times(torch, flows, dev) -> dict:
 
     out = {}
     join = flows["q3"].child.child
-    build = join._materialize_build(dev)
+    _kind, build = join._materialize_build(dev)
     bt = prepare_build(build, join.build_on, mode="unique-mat")
     probe = next(iter(join.probe.batches(dev)))
     out["q3.join.build"] = event_ms(
@@ -771,7 +797,7 @@ def layer_times_phase7(torch, ck, flows, dev):
         torch, lambda: shrink.shrink(concat_batches(parts)), reps=10)
     join = [op for op in q9 if isinstance(op, JoinOp)
             and len(op.probe_on) == 2][0]
-    build = join._materialize_build(dev)
+    _kind, build = join._materialize_build(dev)
     bt = prepare_build(build, join.build_on, mode="unique-mat")
     probe = next(iter(join.probe.batches(dev)))
     out["q9.join.probe"] = event_ms(
@@ -1061,7 +1087,7 @@ def layer_times_phase8(torch, ck, flows, dev, flush):
     for name in ("q2", "q15"):
         join = [op for op in walk_operators(flows[name])
                 if isinstance(op, JoinOp) and op.how == "left"][0]
-        build = join._materialize_build(dev)
+        _kind, build = join._materialize_build(dev)
         bt = prepare_build(build, join.build_on, mode="unique-mat")
         probe = next(iter(join.probe.batches(dev)))
         out[f"{name}.join.left"] = event_ms(
@@ -1242,11 +1268,12 @@ def run_phase4(torch, gen):
 PHASE9 = ("q1",) + PHASE6 + PHASE7 + PHASE8
 # FlowRestarts of each query's fused cold run at SF 1 (every warm run
 # must have none): Q2's and Q16's ShrinkOps and Q4's semi join restart
-# as on the streaming tier (COLD_RESTARTS); Q18's first aggregate takes
+# as on the streaming tier (COLD_RESTARTS; Q4's semi join steps from the
+# payload carry to unique-mat to expand); Q18's first aggregate takes
 # the int-key route, whose run-ends view cannot overflow; Q16's result
 # (about 18,000 rows) passes the first 8,192-row packed window, which
 # widens once
-COLD_RESTARTS_FUSED = {"q2": 1, "q16": 3, "q4": 1}
+COLD_RESTARTS_FUSED = {"q2": 1, "q16": 3, "q4": 2}
 # K1 launches of one fused warm run (one replay), from the tracer's
 # routes at SF 1: the dense GROUP BYs of Q1, Q4, Q5 and Q12 aggregate
 # their materialized input in one call (its rows x bytes fit the JAX
@@ -1334,6 +1361,33 @@ def kernel_events(trace_path: str, needle: str) -> int:
                if e.get("cat") == "kernel" and needle in e.get("name", ""))
 
 
+class carry_joins:
+    """Within the block, the build keys of every unique build that takes
+    the payload carry (ops/sortjoin.py prepare_unique) go into `out`."""
+
+    def __init__(self, out: list):
+        self.out = out
+
+    def __enter__(self):
+        from cockroach_tpu_torch.ops import sortjoin
+
+        self.orig = sortjoin.prepare_unique
+
+        def counting(*args, **kwargs):
+            ub = self.orig(*args, **kwargs)
+            if ub.payv is not None:
+                self.out.append("+".join(ub.build_on))
+            return ub
+
+        sortjoin.prepare_unique = counting
+        return self
+
+    def __exit__(self, *exc):
+        from cockroach_tpu_torch.ops import sortjoin
+
+        sortjoin.prepare_unique = self.orig
+
+
 def run_phase9(torch, gen, q1_streaming, profile_dir):
     """The fifteen queries at SF 1, capacity 2^20, every scan resident,
     through exec.collect's default, the fused tier: per query a cold run
@@ -1378,7 +1432,9 @@ def run_phase9(torch, gen, q1_streaming, profile_dir):
         feed_pregenerated(flow, gen, CAPACITY)
         make_resident(flow)
         flows[name] = flow
-        res, cold, cold_r, _y, cold_l, ev, last = fused_run(torch, flow)
+        carried = []
+        with carry_joins(carried):
+            res, cold, cold_r, _y, cold_l, ev, last = fused_run(torch, flow)
         check(name, "cold run", res)
         left_fused(name, "cold run", ev, last)
         if last.get("mode") != "capture":
@@ -1440,7 +1496,9 @@ def run_phase9(torch, gen, q1_streaming, profile_dir):
               f"run {syncs}; graph pool {pool_mib:.1f} MiB; routes "
               f"{routes}; dense_sums kernels in a traced replay "
               f"{k1_traced} of {n_kernels} kernels, counted per warm run "
-              f"{launch_runs[-1]} (cold {cold_l})", flush=True)
+              f"{launch_runs[-1]} (cold {cold_l}); joins that took the "
+              f"payload carry (build keys) {sorted(set(carried))}",
+              flush=True)
         print(f"  traced fused {name} replay: device busy {busy:.3f} ms of "
               f"{wall:.3f} ms wall; cummax {cummax:.3f} ms in "
               f"{cummax_calls} calls; three longest device ops (total ms, "
@@ -1460,7 +1518,8 @@ def run_phase9(torch, gen, q1_streaming, profile_dir):
                          "fused_device_busy_ms": busy,
                          "fused_traced_wall_ms": wall,
                          "fused_cummax_ms": cummax,
-                         "fused_cummax_calls": cummax_calls}
+                         "fused_cummax_calls": cummax_calls,
+                         "fused_carry_joins": sorted(set(carried))}
     # every graph shares one memory pool: replay each once more, after
     # every other capture, and hold it to its oracle again
     for name, flow in flows.items():
@@ -1523,6 +1582,434 @@ def fused_dense_shapes(torch, ck, flows, flush):
               f"{shape['plain_ms']:.4f}, library_ms "
               f"{shape['library_ms']:.4f} (index_add_)", flush=True)
     return out, worst
+
+
+# ----------------------------------------------------------- phase 10
+
+# the per-operator budgets of phase 10's runs (the spill rung's default,
+# sql.resilience.spill_workmem_bytes, is 32 MiB)
+MIB = 1 << 20
+# the stages each budgeted run must show, at least this many times, from
+# the plans' row widths (exec/spill.py estimate_row_bytes) against the
+# budget: Q18's final 5-key GROUP BY holds 40 B a row (2^20 x 40 B past
+# 32 MiB), its first 16 B, the customer build 12 B; Q9's partsupp build
+# holds 24 B, its orders build 12 B. At 4 MiB Q18's first GROUP BY and
+# two joins spill; its final GROUP BY then reads the grace join's
+# replayed batches of 2^16 lanes (the replay capacity fits the join's
+# budget), whose 2.5 MiB accumulator fits, as in the JAX package
+SPILL_RUNS = {
+    "q18_32mib": ("q18", 32 * MIB, {"agg.grace_spill": 1}),
+    "q18_4mib": ("q18", 4 * MIB, {"agg.grace_spill": 1,
+                                  "join.grace_spill": 2}),
+    "q9_8mib": ("q9", 8 * MIB, {"join.grace_spill": 1}),
+}
+SPILL_RUN_STAGES = ("agg.grace_spill", "join.grace_spill",
+                    "agg.grace_partition_retry", "sort.external_spill",
+                    "sort.device_run", "sort.host_merge", "flow.restart")
+# host timers of the out-of-core paths (exec/spill.py, SortOp)
+SPILL_TIMERS = ("spill.partition", "sort.device_run", "sort.host_merge",
+                "spill.replay")
+RANGE_DENSE_PAIRS = 10
+
+
+def set_workmem(flow, workmem: int) -> None:
+    """Every operator of the flow at `workmem` bytes."""
+    from cockroach_tpu_torch.exec.operators import walk_operators
+
+    for op in walk_operators(flow):
+        if hasattr(op, "workmem"):
+            op.workmem = workmem
+
+
+def spill_clean(label: str) -> None:
+    """After a run: the host-spill monitor back at 0, no spill file
+    left."""
+    import glob
+
+    from cockroach_tpu_torch.exec import spill
+
+    used = spill.host_spill_monitor().used
+    left = glob.glob(os.path.join(spill._spill_dir(), "part-*.bin"))
+    if used or left:
+        raise SystemExit(f"{label}: host-spill monitor at {used} bytes, "
+                         f"spill files left {left}")
+
+
+def spill_run(torch, flow, collect, label: str):
+    """One run with the device memory peak measured from the allocation
+    it starts at: (result, seconds, peak MiB, stats stages)."""
+    from cockroach_tpu_torch.exec import stats
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with stats.query_stats() as col:
+        t0 = time.perf_counter()
+        res = collect(flow)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - base) / MIB
+    spill_clean(label)
+    return res, dt, peak, dict(col.stages)
+
+
+def spill_line(stages) -> dict:
+    """The spill numbers of one run's stats."""
+    def get(name, field):
+        st = stages.get(name)
+        return getattr(st, field) if st else 0
+
+    return {"events": {s: get(s, "events") for s in SPILL_RUN_STAGES
+                       if get(s, "events")},
+            "spill_write_rows": get("spill.write", "rows"),
+            "spill_write_bytes": get("spill.write", "bytes"),
+            "spill_replay_rows": get("spill.replay", "rows"),
+            "spill_replay_bytes": get("spill.replay", "bytes"),
+            "host_ms": {s: get(s, "seconds") * 1e3 for s in SPILL_TIMERS}}
+
+
+def run_phase10(torch, gen):
+    """The out-of-core paths at SF 1, capacity 2^20, data generated off
+    the clock, streaming flows (no resident image, the scan-image cache
+    off): (a)-(c) Q18 and Q9 under per-operator budgets, a cold run and 2
+    more each, beside the same query's unbounded run; (d) an external
+    sort of lineitem; (e) the spill rung; (f) the ladder with fusion on;
+    (g) the range-dense GROUP BY, merge_join and a checked build. Every
+    run equals its oracle and its rows from phases 6-7, and leaves no
+    spilled byte or file. -> {label: JSON record}."""
+    from cockroach_tpu_torch.exec import operators as ops
+    from cockroach_tpu_torch.exec import stats
+    from cockroach_tpu_torch.exec.scan_cache import scan_image_cache
+
+    print(f"[10] out of core: SF {SF}, capacity {CAPACITY}, streaming "
+          f"flows, budgets per operator", flush=True)
+    scan_image_cache().clear()
+    t_phase = time.perf_counter()
+    collect = streaming_collect()
+    builders = query_flows(gen)
+    oracles = {n: query_oracle(n, gen) for n in ("q18", "q9", "q3")}
+    records = {}
+
+    def fresh(name):
+        flow = builders[name]()
+        feed_pregenerated(flow, gen, CAPACITY)
+        make_streaming(flow)
+        return flow
+
+    def check(name, label, res):
+        rows = query_rows(name, res)
+        if rows != oracles[name] or rows != STREAMING_ROWS[name]:
+            raise SystemExit(f"{label}: {rows[:3]}... differs from the "
+                             f"oracle or the phase 6-7 rows")
+
+    # the unbounded reference of each query: the same streaming path at
+    # the default workmem
+    unbounded = {}
+    for name in ("q18", "q9"):
+        res, dt, peak, _st = spill_run(torch, fresh(name), collect,
+                                       f"{name} unbounded")
+        check(name, f"{name} unbounded", res)
+        unbounded[name] = (dt, peak)
+        print(f"  {name} unbounded (workmem 512 MiB): {dt:.3f} s, device "
+              f"memory peak {peak:.1f} MiB", flush=True)
+
+    # (a)-(c): the budgeted runs
+    for label, (name, workmem, want) in SPILL_RUNS.items():
+        runs = []
+        for i in range(3):
+            flow = fresh(name)
+            set_workmem(flow, workmem)
+            res, dt, peak, st = spill_run(torch, flow, collect, label)
+            check(name, f"{label} run {i}", res)
+            line = spill_line(st)
+            short = {k: n for k, n in want.items()
+                     if line["events"].get(k, 0) < n}
+            if short:
+                raise SystemExit(f"{label} run {i}: events "
+                                 f"{line['events']}, expected at least "
+                                 f"{want}")
+            runs.append(dict(line, wall_s=dt, peak_mib=peak))
+            print(f"  {label} run {i}: {dt:.3f} s; events "
+                  f"{line['events']}; spill written {line['spill_write_rows']}"
+                  f" rows {line['spill_write_bytes'] / MIB:.1f} MiB, "
+                  f"replayed {line['spill_replay_rows']} rows "
+                  f"{line['spill_replay_bytes'] / MIB:.1f} MiB; host ms "
+                  + ", ".join(f"{k} {v:.1f}" for k, v
+                              in line["host_ms"].items())
+                  + f"; device memory peak {peak:.1f} MiB (unbounded "
+                  f"{unbounded[name][1]:.1f} MiB)", flush=True)
+        records[label] = {"query": name, "workmem": workmem, "runs": runs,
+                          "unbounded_s": unbounded[name][0],
+                          "unbounded_peak_mib": unbounded[name][1]}
+
+    # the read-ahead of the grace join's build replay, on and off in
+    # alternating pairs over Q9 at 8 MiB
+    paired = {"on": [], "off": []}
+    real_read_ahead = ops._read_ahead
+    for i in range(2):
+        for arm in (("on", "off") if i % 2 == 0 else ("off", "on")):
+            ops._read_ahead = (real_read_ahead if arm == "on"
+                               else (lambda it, depth=2: it))
+            try:
+                flow = fresh("q9")
+                set_workmem(flow, 8 * MIB)
+                res, dt, _p, _st = spill_run(torch, flow, collect,
+                                             f"q9 read-ahead {arm}")
+            finally:
+                ops._read_ahead = real_read_ahead
+            check("q9", f"q9 read-ahead {arm}", res)
+            paired[arm].append(dt)
+    print(f"  q9 at 8 MiB, the build replay's read-ahead on / off in "
+          f"pairs: on {[round(t, 3) for t in paired['on']]} s, off "
+          f"{[round(t, 3) for t in paired['off']]} s", flush=True)
+    records["read_ahead_q9_8mib"] = paired
+
+    records["sort_32mib"] = external_sort_run(torch, gen, collect)
+    records["spill_rung"] = spill_rung_run(torch, gen, fresh, check)
+    records["fused_ladder"] = fused_ladder_run(torch, fresh, check)
+    records["routes"] = leftover_routes(torch, gen, fresh, check)
+    print(f"  phase 10: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return records
+
+
+def external_sort_run(torch, gen, collect) -> dict:
+    """(d) ORDER BY l_shipdate, l_orderkey DESC, l_linenumber over every
+    lineitem row, l_quantity carried, at 32 MiB: equal to numpy's stable
+    lexsort of the same columns."""
+    from cockroach_tpu_torch.exec.operators import ScanOp, SortOp
+    from cockroach_tpu_torch.ops.sort import SortKey
+
+    cols = ("l_shipdate", "l_orderkey", "l_linenumber", "l_quantity")
+    table = gen.table("lineitem")
+    n = gen.num_rows("lineitem")
+    chunks = [{c: table[c][a:a + CAPACITY] for c in cols}
+              for a in range(0, n, CAPACITY)]
+    schema = gen.schema("lineitem").project(list(cols))
+    order = np.lexsort((table["l_linenumber"], -table["l_orderkey"],
+                        table["l_shipdate"]))
+    sort = SortOp(ScanOp(schema, lambda: iter(chunks), CAPACITY),
+                  [SortKey("l_shipdate"),
+                   SortKey("l_orderkey", descending=True),
+                   SortKey("l_linenumber")], workmem=32 * MIB)
+    res, dt, peak, st = spill_run(torch, sort, collect, "external sort")
+    for c in cols:
+        if not np.array_equal(np.asarray(res[c]), table[c][order]):
+            raise SystemExit(f"external sort: {c} differs from numpy's "
+                             f"stable lexsort")
+    line = spill_line(st)
+    ev = line["events"]
+    if (ev.get("sort.external_spill") != 1 or ev.get("sort.device_run", 0) < 2
+            or ev.get("sort.host_merge") != 1):
+        raise SystemExit(f"external sort: events {ev}, expected one "
+                         f"external spill, at least 2 device runs, one "
+                         f"host merge")
+    print(f"  (d) external sort of {n} lineitem rows at 32 MiB: {dt:.3f} s, "
+          f"equal to numpy's stable lexsort; events {ev}; spill written "
+          f"{line['spill_write_rows']} rows "
+          f"{line['spill_write_bytes'] / MIB:.1f} MiB, replayed "
+          f"{line['spill_replay_rows']} rows; host ms "
+          + ", ".join(f"{k} {v:.1f}" for k, v in line["host_ms"].items())
+          + f"; device memory peak {peak:.1f} MiB", flush=True)
+    return dict(line, wall_s=dt, peak_mib=peak, rows=n)
+
+
+def spill_rung_run(torch, gen, fresh, check) -> dict:
+    """(e) Q3 whose streaming tier runs out of device memory until the
+    spill rung clamps its workmem: the ladder degrades, the result equals
+    the oracle, and every workmem is restored."""
+    from cockroach_tpu_torch.exec import operators as ops
+    from cockroach_tpu_torch.util import circuit
+
+    class OomUntilClamped(ops.Operator):
+        def __init__(self, inner):
+            self.child = inner
+            self.schema = inner.schema
+            self.workmem = 1 << 30
+
+        def batches(self, device):
+            if self.workmem > 64 * MIB:
+                raise torch.cuda.OutOfMemoryError(
+                    "CUDA out of memory (the streaming tier, stubbed)")
+            yield from self.child.batches(device)
+
+    circuit.reset_all()
+    op = OomUntilClamped(fresh("q3"))
+    before = {id(o): o.workmem for o in ops.walk_operators(op)
+              if hasattr(o, "workmem")}
+    try:
+        res, dt, peak, st = spill_run(
+            torch, op, lambda f: ops.collect(f, fuse=False), "spill rung")
+    finally:
+        circuit.reset_all()
+    check("q3", "spill rung", res)
+    after = {id(o): o.workmem for o in ops.walk_operators(op)
+             if hasattr(o, "workmem")}
+    if "resilience.degrade.streaming" not in st or after != before:
+        raise SystemExit(f"spill rung: stages {sorted(st)}, workmem "
+                         f"restored {after == before}")
+    line = spill_line(st)
+    print(f"  (e) Q3 through the spill rung: resilience.degrade.streaming "
+          f"{st['resilience.degrade.streaming'].events}, {dt:.3f} s, equal "
+          f"to the oracle, every workmem restored; events {line['events']}"
+          f"; device memory peak {peak:.1f} MiB", flush=True)
+    return dict(line, wall_s=dt, peak_mib=peak)
+
+
+def fused_ladder_run(torch, fresh, check) -> dict:
+    """(f) Q18 at 32 MiB through collect(flow): the fused tracer declines
+    on its workmem rule and the streaming operators complete through the
+    grace paths."""
+    from cockroach_tpu_torch.exec.operators import collect
+
+    flow = fresh("q18")
+    set_workmem(flow, 32 * MIB)
+    res, dt, peak, st = spill_run(torch, flow, collect, "fused ladder")
+    check("q18", "fused ladder", res)
+    fallback = {k: v.events for k, v in st.items()
+                if k.startswith("fused.fallback_")}
+    why = flow._fused_runner.last.get("unsupported", "")
+    line = spill_line(st)
+    if "workmem" not in why or not line["events"].get("agg.grace_spill"):
+        raise SystemExit(f"fused ladder: {fallback} ({why}), events "
+                         f"{line['events']}")
+    print(f"  (f) Q18 at 32 MiB through collect(flow): {fallback} "
+          f"({why}); events {line['events']}; {dt:.3f} s, equal to the "
+          f"oracle", flush=True)
+    return dict(line, wall_s=dt, peak_mib=peak, fallback=fallback,
+                unsupported=why)
+
+
+def leftover_routes(torch, gen, fresh, check) -> dict:
+    """(g) the range-dense GROUP BY against the sort route (Q17's
+    per-part GROUP BY, whose span the constructor admits, and Q18's first
+    GROUP BY, whose 6,000,000 it does not), timed in alternating pairs;
+    merge_join at Q3's orders x lineitem join against hash_join; Q3 built
+    with sql.tpu.invariants on."""
+    from cockroach_tpu_torch.exec.invariants import INVARIANTS
+    from cockroach_tpu_torch.exec.operators import (
+        HashAggOp, ScanOp, collect,
+    )
+    from cockroach_tpu_torch.ops.agg import AggSpec
+    from cockroach_tpu_torch.ops.join import hash_join, merge_join
+    from cockroach_tpu_torch.util.settings import Settings
+
+    out = {}
+    dev = torch.device("cuda")
+    table = gen.table("lineitem")
+    n = gen.num_rows("lineitem")
+    for label, key, aggs, (lo, hi) in (
+            ("q17_partkey", "l_partkey", [AggSpec("avg", "l_quantity", "a")],
+             (1, int(table["l_partkey"].max()))),
+            ("q18_orderkey", "l_orderkey",
+             [AggSpec("sum", "l_quantity", "s")], (1, 6000000))):
+        cols = (key, "l_quantity")
+        schema = gen.schema("lineitem").project(list(cols))
+        chunks = [{c: table[c][a:a + CAPACITY] for c in cols}
+                  for a in range(0, n, CAPACITY)]
+        scan = ScanOp(schema, lambda chunks=chunks: iter(chunks), CAPACITY,
+                      resident=True)
+        rd = HashAggOp(scan, [key], aggs, dense_range=(lo, hi))
+        admitted = rd._range_dense is not None
+        if not admitted:
+            # the JAX constructor's rule (span <= 2^22) declines it: force
+            # the route to measure it at this shape
+            rd._range_dense = (lo, hi - lo + 1)
+        srt = HashAggOp(scan, [key], aggs, expansion=2)
+
+        def run(op):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            b = list(op.batches(dev))[0]
+            torch.cuda.synchronize()
+            return b, time.perf_counter() - t0
+
+        run(srt)  # pins the scan's image: both arms read it
+        results = {}
+        for arm, op in (("range_dense", rd), ("sort", srt)):
+            b, _ = run(op)
+            live = b.sel.cpu().numpy()
+            got = {c: b.col(c).values.cpu().numpy()[live]
+                   for c in b.columns}
+            o = np.argsort(got[key], kind="stable")
+            results[arm] = {c: v[o] for c, v in got.items()}
+        for c in results["sort"]:
+            a, s = results["range_dense"][c], results["sort"][c]
+            same = (np.array_equal(a, s) if a.dtype.kind != "f"
+                    else np.allclose(a, s, rtol=1e-6, atol=0))
+            if not same:
+                raise SystemExit(f"range dense {label}: {c} differs from "
+                                 f"the sort route")
+        times = {"range_dense": [], "sort": []}
+        for i in range(RANGE_DENSE_PAIRS):
+            arms = (("range_dense", rd), ("sort", srt))
+            for arm, op in (arms if i % 2 == 0 else arms[::-1]):
+                times[arm].append(run(op)[1])
+        med = {k: statistics.median(v) * 1e3 for k, v in times.items()}
+        how = "admitted" if admitted else "forced past the 2^22 span rule"
+        print(f"  (g) range-dense GROUP BY {key} span {hi - lo + 1} "
+              f"({how}): {len(results['sort'][key])} groups equal to the sort "
+              f"route (float32 avg within 1e-6 relative); {RANGE_DENSE_PAIRS}"
+              f" pairs, median ms range-dense {med['range_dense']:.2f}, sort "
+              f"{med['sort']:.2f}", flush=True)
+        out[label] = {"span": hi - lo + 1, "admitted": admitted,
+                      "groups": len(results["sort"][key]),
+                      "range_dense_ms": times["range_dense"],
+                      "sort_ms": times["sort"]}
+        scan.evict()
+
+    # merge_join at Q3's orders x lineitem join: one lineitem chunk
+    # probing every order, sorted on o_orderkey
+    from cockroach_tpu_torch.coldata.carry import batch_from_arrays
+
+    orders = gen.table("orders")
+    o = np.argsort(orders["o_orderkey"], kind="stable")
+    build = batch_from_arrays(
+        {"o_orderkey": (orders["o_orderkey"][o], None),
+         "o_orderdate": (orders["o_orderdate"][o], None)},
+        np.ones(len(o), bool), len(o), dev)
+    probe = batch_from_arrays(
+        {"l_orderkey": (table["l_orderkey"][:CAPACITY], None),
+         "l_extendedprice": (table["l_extendedprice"][:CAPACITY], None)},
+        np.ones(min(CAPACITY, n), bool), min(CAPACITY, n), dev)
+    mj = merge_join(probe, build, ["l_orderkey"], ["o_orderkey"])
+    hj = hash_join(probe, build, ["l_orderkey"], ["o_orderkey"])
+
+    def join_rows(res):
+        b = res.batch
+        live = b.sel.cpu().numpy()
+        return sorted(zip(*(b.col(c).values.cpu().numpy()[live].tolist()
+                            for c in ("l_orderkey", "l_extendedprice",
+                                      "o_orderdate"))))
+
+    if bool(mj.overflow) or join_rows(mj) != join_rows(hj):
+        raise SystemExit("merge_join differs from hash_join at Q3's "
+                         "orders x lineitem join")
+    mj_ms = event_ms(torch, lambda: merge_join(
+        probe, build, ["l_orderkey"], ["o_orderkey"]), reps=10)
+    hj_ms = event_ms(torch, lambda: hash_join(
+        probe, build, ["l_orderkey"], ["o_orderkey"]), reps=10)
+    print(f"  (g) merge_join at Q3's orders x lineitem join ({probe.capacity}"
+          f" probe lanes, {build.capacity} build lanes): equal to "
+          f"hash_join's {len(join_rows(hj))} rows; device ms merge_join "
+          f"{mj_ms:.3f}, hash_join {hj_ms:.3f}", flush=True)
+    out["merge_join_q3"] = {"ms": mj_ms, "hash_join_ms": hj_ms}
+
+    # Q3 with every operator wrapped in the invariants checker
+    settings = Settings()
+    settings.set(INVARIANTS, True)
+    try:
+        flow = fresh("q3")
+    finally:
+        settings.set(INVARIANTS, False)
+    res, dt, _peak, st = spill_run(torch, flow, collect, "checked q3")
+    check("q3", "checked q3", res)
+    if "fused.exec" in st:
+        raise SystemExit("checked q3 ran the fused tier")
+    print(f"  (g) Q3 with sql.tpu.invariants on (every operator checked, "
+          f"the fused tier declined): {dt:.3f} s, equal to the oracle",
+          flush=True)
+    out["checked_q3_s"] = dt
+    return out
 
 
 def main() -> int:
@@ -1667,6 +2154,16 @@ def main() -> int:
         query_records[name].update(rec)
     fused_shapes, worst9 = fused_dense_shapes(torch, ck, flows9, flush)
     worst = max(worst, worst9)
+    # the phase 9 flows' images and graphs go before the out-of-core runs
+    # measure their device memory peaks
+    for f in flows9.values():
+        for scan in scans_of(f):
+            scan.evict()
+        f._fused_runner = None
+    del flows9, flow
+    torch.cuda.empty_cache()
+    # ---- 10. the out-of-core paths
+    records10 = run_phase10(torch, gen)
 
     kernels = [{
         "name": "dense_sums",
@@ -1688,11 +2185,12 @@ def main() -> int:
         "library_ms": library_ms,
         "at_shapes": {"q1": q1_shape, **k1_shapes, **fused_shapes},
     }]
-    print(f"[10] whole run {time.perf_counter() - t_start:.1f} s",
+    print(f"[11] whole run {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"q1": q1_record}))
     for name in PHASE6 + PHASE7 + PHASE8:
         print(json.dumps({name: query_records[name]}))
+    print(json.dumps({"phase10": records10}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -44,9 +44,10 @@ run; a raised flag raises FlowRestart, and run_flow widens the operator
 and reruns, under a new config key (a new capture on CUDA).
 
 Not ported yet: `compile_via_vault` and `aot_compile` (the plan vault),
-the serving runners (ROADMAP.md queue 1, item 8), the range-dense
-aggregate (item 4) and WindowOp (item 5); none of them exists in the
-port, so `_validate` refuses any operator it does not know.
+the serving runners (ROADMAP.md queue 1, item 8) and WindowOp (item 5);
+none of them exists in the port, so `_validate` refuses any operator it
+does not know, the invariants checker (exec/invariants.py CheckedOp) and
+a grace level's sub-join among them, as the JAX tracer does.
 """
 
 from __future__ import annotations
@@ -65,8 +66,9 @@ from cockroach_tpu_torch.exec import stats
 from cockroach_tpu_torch.exec.operators import (
     DistinctOp, FlowRestart, HashAggOp, JoinOp, LimitOp, MapOp, Operator,
     ScanImage, ScanOp, ShrinkOp, SortOp, TopKOp, _fold_step, _grow_to,
-    _pow2_at_least, _row_bytes, child_operators, walk_operators,
+    _pow2_at_least, child_operators, walk_operators,
 )
+from cockroach_tpu_torch.exec.spill import estimate_row_bytes
 from cockroach_tpu_torch.ops.agg import (
     dense_aggregate, dense_merge, hash_aggregate,
 )
@@ -85,9 +87,6 @@ class Unsupported(Exception):
 
 
 CHUNKABLE_JOINS = ("inner", "left", "semi", "anti")
-# the port's unique sort join is the JAX package's first rung ("unique",
-# which runs as the row-matrix join too): one output lane per probe row
-_UNIQUE_MODES = ("unique", "unique-mat")
 
 
 def _validate(op: Operator) -> None:
@@ -97,6 +96,8 @@ def _validate(op: Operator) -> None:
     if isinstance(op, ScanOp):
         return
     if isinstance(op, JoinOp):
+        if op.grace_level != 0:
+            raise Unsupported("grace-partitioned join")
         _validate(op.probe)
         _validate(op.build)
         return
@@ -213,7 +214,7 @@ class _Tracer:
             if s is None:
                 return None
             build = self._mat(op.build)
-            if self._lanes(op.build) * _row_bytes(op.build.schema) \
+            if self._lanes(op.build) * estimate_row_bytes(op.build.schema) \
                     > op.workmem:
                 raise Unsupported("join build exceeds workmem")
             mode = effective_build_mode(op.build_mode,
@@ -230,7 +231,8 @@ class _Tracer:
                                          how=how, out_capacity=out_cap)
                 return res.batch, fl + (res.overflow,)
 
-            if mode in _UNIQUE_MODES:
+            if mode == "unique":
+                # one output lane per probe row for every chunkable type
                 cap = s.cap
             else:
                 cap = {"inner": out_cap, "left": out_cap + s.cap,
@@ -282,7 +284,7 @@ class _Tracer:
         if isinstance(op, JoinOp):
             probe = self._mat(op.probe)
             self._mat(op.build)
-            if self._lanes(op.build) * _row_bytes(op.build.schema) \
+            if self._lanes(op.build) * estimate_row_bytes(op.build.schema) \
                     > op.workmem:
                 raise Unsupported("join build exceeds workmem")
             mode = effective_build_mode(op.build_mode,
@@ -294,7 +296,7 @@ class _Tracer:
                             mode=mode)
             # the output holds the probe's lanes unless it is an expand
             # inner join's pair list, and the build's in a right/outer join
-            srcs = [] if (op.how == "inner" and mode not in _UNIQUE_MODES) \
+            srcs = [] if (op.how == "inner" and mode == "expand") \
                 else [op.probe]
             if op.how in ("right", "outer"):
                 srcs.append(op.build)
@@ -311,7 +313,8 @@ class _Tracer:
             return out
         if isinstance(op, SortOp):
             m = self._mat(op.child)
-            if self._lanes(op.child) * _row_bytes(op.schema) > op.workmem:
+            if self._lanes(op.child) * estimate_row_bytes(op.schema) \
+                    > op.workmem:
                 raise Unsupported("sort exceeds workmem")
             self._inherit(op, op.child)
             return sort_batch(m, tuple(op.keys), op.child.schema)
@@ -375,7 +378,7 @@ class _Tracer:
             return None
         if effective_build_mode(child.build_mode,
                                 child.build.schema.names(),
-                                child.build_on) not in _UNIQUE_MODES:
+                                child.build_on) != "unique":
             return None
         pon, bon = child.probe_on[0], child.build_on[0]
         gb = list(op.group_by)
@@ -412,12 +415,12 @@ class _Tracer:
             return None
         # the collapse materializes the probe side whole: respect the
         # operator budget (the streaming fold remains the bounded path)
-        if (self._est_rows(child.probe) * _row_bytes(child.probe.schema)
-                > op.workmem):
+        if (self._est_rows(child.probe)
+                * estimate_row_bytes(child.probe.schema) > op.workmem):
             return None
         probe = self._mat(child.probe)
         build = self._mat(child.build)
-        if self._lanes(child.build) * _row_bytes(child.build.schema) \
+        if self._lanes(child.build) * estimate_row_bytes(child.build.schema) \
                 > child.workmem:
             raise Unsupported("join build exceeds workmem")
         ccap = min(
@@ -448,8 +451,8 @@ class _Tracer:
 
         if not getattr(op, "_ia_ok", True) or len(op.group_by) != 1:
             return None
-        if op.dense_sizes is not None:
-            return None  # small static domains: the dense route wins
+        if op.dense_sizes is not None or op._range_dense is not None:
+            return None  # small static domains: the dense routes win
         child_schema = op.child.schema
         key = op.group_by[0]
         if not _is_int(child_schema.field(key).type.dtype):
@@ -461,7 +464,8 @@ class _Tracer:
                 dt = child_schema.field(a.col).type.dtype
                 if not (dt == torch.bool or _is_int(dt)):
                     return None
-        if self._est_rows(op.child) * _row_bytes(child_schema) > op.workmem:
+        if self._est_rows(op.child) * estimate_row_bytes(child_schema) \
+                > op.workmem:
             return None
         m = self._mat(op.child)
         # small inputs compact to their full bound (overflow impossible);
@@ -478,6 +482,39 @@ class _Tracer:
         self.routes["int_key"] += 1
         return op._final_project(res.batch)
 
+    def _range_dense_agg(self, op: HashAggOp) -> Batch:
+        """The direct-address GROUP BY (ops/agg.py
+        range_dense_aggregate): folded over the chunks when the input
+        streams, else over the materialized input; its out-of-range flag
+        reruns the flow with the route off."""
+        from cockroach_tpu_torch.ops.agg import range_dense_aggregate
+
+        group_by, internal = tuple(op.group_by), tuple(op.internal)
+        lo, span = op._range_dense
+        self.routes["range_dense"] += 1
+        s = self._stream(op.child)
+        if s is not None:
+
+            def init(b):
+                return range_dense_aggregate(b, group_by[0], lo, span,
+                                             internal)
+
+            def step(carry, b):
+                acc, fl = carry
+                part, fl2 = range_dense_aggregate(b, group_by[0], lo, span,
+                                                  internal)
+                return dense_merge(acc, part, group_by, internal), fl | fl2
+
+            (acc, fl), chain_fl = self._fold(s, init, step)
+            self.flag_ops.extend(s.flag_ops + [op])
+            self.flags.extend(list(chain_fl) + [fl])
+            return op._final_project(acc)
+        out, fl = range_dense_aggregate(self._mat(op.child), group_by[0], lo,
+                                        span, internal)
+        self.flag_ops.append(op)
+        self.flags.append(fl)
+        return op._final_project(out)
+
     def _mat_agg(self, op: HashAggOp) -> Batch:
         gj = self._try_groupjoin(op)
         if gj is not None:
@@ -486,12 +523,14 @@ class _Tracer:
         if ia is not None:
             return ia
         group_by, internal = tuple(op.group_by), tuple(op.internal)
+        if op._range_dense is not None:
+            return self._range_dense_agg(op)
         s = self._stream(op.child)
         if s is not None and group_by:
             # one aggregation over the materialized input beats a
             # per-chunk fold whenever the input fits the operator budget
             mat_rows = s.cap * self._chunks(s.scan)
-            if mat_rows * _row_bytes(op.child.schema) <= op.workmem:
+            if mat_rows * estimate_row_bytes(op.child.schema) <= op.workmem:
                 s = None
         sizes = op.dense_sizes
         if s is not None and sizes is not None:
@@ -512,7 +551,7 @@ class _Tracer:
         if s is not None:
             part_cap = s.cap if group_by else 1
             acc_cap = _pow2_at_least(part_cap * op.expansion)
-            if group_by and acc_cap * _row_bytes(op._internal_schema) \
+            if group_by and acc_cap * estimate_row_bytes(op._internal_schema) \
                     > op.workmem:
                 raise Unsupported("agg accumulator exceeds workmem")
             seed, merge_aggs = op.seed, op._merge_aggs
@@ -753,6 +792,7 @@ class FusedRunner:
             out.append((type(op).__name__, op.expansion, op.workmem,
                         getattr(op, "seed", 0),
                         getattr(op, "build_mode", ""),
+                        getattr(op, "_range_dense", None),
                         getattr(op, "_gj_bump", 0),
                         getattr(op, "_ia_ok", True),
                         getattr(op, "_ia_wide", False)))

@@ -2,13 +2,15 @@
 
 Counterpart of cockroach_tpu/exec/operators.py, for the operators on the
 paths of the fifteen TPC-H queries: ScanOp -> MapOp (filter,
-projection) -> HashAggOp (the dense route, and the sort route with its
-scalar case), OrderedAggOp, JoinOp, ShrinkOp, DistinctOp, SortOp (in
-memory), TopKOp and LimitOp. An operator yields Batches on the device
+projection) -> HashAggOp (the dense route, the range-dense route, the
+sort route with its scalar case, and the grace GROUP BY), OrderedAggOp,
+JoinOp (with the grace join), ShrinkOp, DistinctOp, SortOp (in memory or
+external), TopKOp and LimitOp. An operator yields Batches on the device
 that `collect` names. `run_flow` drives a flow down the degradation
 ladder: the fused whole-query program of exec/fused.py (one CUDA graph
 per query on a card) when the tree fits its grammar, then these
-streaming operators.
+streaming operators, then the same operators with every workmem clamped
+to the spill rung's budget.
 
 No operator reads a device value back to the host inside its batch loop.
 A deferred capacity or correctness check (aggregate overflow, hash
@@ -23,10 +25,10 @@ exec/scan_cache.py. A HashAggOp over such a scan folds its chunks as it
 folds a stream (`agg.fold_stacked`); a JoinOp builds from a whole image
 of several chunks in one pass (`join.build_stacked`).
 
-Not ported yet (ROADMAP.md queue 1): the range-dense GROUP BY, the grace
-(out-of-core) paths of HashAggOp and JoinOp, the external sort, the
-ladder's forced-spill rung, and `_read_ahead`, which only the grace
-join's replay uses.
+Past `workmem` the blocking operators go out of core (exec/spill.py):
+HashAggOp spills its per-batch partials into Grace partitions and
+merge-aggregates each, JoinOp partitions both sides and joins partition
+pairs, SortOp sorts runs on the device and merges them on the host.
 """
 
 from __future__ import annotations
@@ -76,12 +78,6 @@ def _pow2_at_least(n: int) -> int:
     while size < n:
         size *= 2
     return size
-
-
-def _row_bytes(schema: Schema) -> int:
-    """Device bytes per row, validity excluded, for workmem decisions
-    (exec/spill.py estimate_row_bytes in the JAX package)."""
-    return sum(f.type.np_dtype.itemsize for f in schema)
 
 
 def _grow_to(b: Batch, cap: int) -> Batch:
@@ -219,6 +215,32 @@ def _prefetch(it: Iterator, device: torch.device, depth: int = 4
                 q.get(timeout=0.01)
             except _queue.Empty:
                 pass
+
+
+def _read_ahead(it: Iterator, depth: int = 2) -> Iterator:
+    """Double-buffered pull: keep `depth` items taken ahead of the
+    consumer. An item whose production starts a non-blocking copy from
+    pinned memory (exec/spill.py BlockSource) then copies while the
+    consumer's kernels for the item before it run. Same thread, no
+    queue; closing this generator closes the source."""
+    from collections import deque
+
+    buf: "deque" = deque()
+    it = iter(it)
+    try:
+        while True:
+            while len(buf) < depth:
+                try:
+                    buf.append(next(it))
+                except StopIteration:
+                    while buf:
+                        yield buf.popleft()
+                    return
+            yield buf.popleft()
+    finally:
+        close = getattr(it, "close", None)
+        if close is not None:
+            close()
 
 
 _flow_stopper = None
@@ -572,6 +594,12 @@ class HashAggOp(Operator):
     lane-wise with dense_merge (K1 on CUDA), with no overflow and no
     restart.
 
+    Range-dense route: given `dense_range=(lo, hi)` for a single integer
+    key (span at most 2^22, aggregates of ops/agg.py RANGE_DENSE_FUNCS),
+    each batch scatters into span lanes (range_dense_aggregate) and the
+    partials merge lane-wise. A key outside the range raises the deferred
+    flag, and widen() turns the route off.
+
     Sort route (every other GROUP BY, and the scalar aggregate): the
     partial is hash_aggregate(method="hash") of the batch; the fold
     re-aggregates (accumulator ++ partial) with the merge functions and
@@ -580,18 +608,32 @@ class HashAggOp(Operator):
     the final batch; a raised flag ends the stream with FlowRestart, and
     widen() doubles `expansion` and re-seeds the hash.
 
+    Grace route: an accumulator past `workmem` is never allocated. The
+    partials spill into DEFAULT_NUM_PARTITIONS x expansion host
+    partitions by group-key hash (exec/spill.py), and each partition
+    merge-aggregates on the device at a fold capacity sized to the
+    budget; a partition that overflows reruns alone at twice the
+    capacity, up to 4 attempts, before the flow restarts.
+
     avg decomposes into sum + count so partials merge; a wide sum into its
-    two int64 halves. An accumulator past `workmem` needs the grace path,
-    which is not ported yet and raises."""
+    two int64 halves."""
 
     def __init__(self, child: Operator, group_by: Sequence[str],
-                 aggs: Sequence[AggSpec]):
+                 aggs: Sequence[AggSpec], expansion: int = 1,
+                 workmem: Optional[int] = None,
+                 dense_range: Optional[Tuple[int, int]] = None):
+        from cockroach_tpu_torch.ops.agg import RANGE_DENSE_FUNCS
+
         self.child = child
         self.group_by = list(group_by)
         self.user_aggs = list(aggs)
-        self.expansion = 1  # acc capacity multiplier (restart doubles)
+        self.expansion = expansion  # acc capacity multiplier (restart doubles)
         self.seed = 0       # hash-grouping seed (restart re-seeds)
-        self.workmem = Settings().get(WORKMEM)
+        self.workmem = Settings().get(WORKMEM) if workmem is None else workmem
+        # the single integer key's value range [lo, hi]: the
+        # direct-address route; a stale range raises the deferred flag
+        # and widen() turns the route off
+        self.dense_range = dense_range
         self.internal: List[AggSpec] = []
         self._avg_parts: Dict[str, Tuple[str, str]] = {}
         for a in aggs:
@@ -607,6 +649,7 @@ class HashAggOp(Operator):
             else:
                 self.internal.append(a)
         self.schema = self._infer_schema(child.schema)
+        # the rows the fold accumulator holds and the grace path spills
         self._internal_schema = Schema(
             [child.schema.field(n) for n in self.group_by]
             + [Field(a.out, self._agg_out_type(a, child.schema))
@@ -616,6 +659,16 @@ class HashAggOp(Operator):
                                  for a in self.internal)
         self.dense_sizes = (dense_key_sizes(child.schema, self.group_by)
                             if self.group_by else None)
+        self._range_dense: Optional[Tuple[int, int]] = None
+        if (self.dense_sizes is None and dense_range is not None
+                and len(self.group_by) == 1):
+            lo, hi = dense_range
+            span = hi - lo + 1
+            kdt = child.schema.field(self.group_by[0]).type.dtype
+            if (all(a.func in RANGE_DENSE_FUNCS for a in self.internal)
+                    and 0 < span <= (1 << 22)
+                    and not kdt.is_floating_point and kdt != torch.bool):
+                self._range_dense = (int(lo), int(span))
         # the fused tracer's fast-path ladders (exec/fused.py): the
         # group-join collapse's key width step, and the int-key GROUP
         # BY's wide keys and its switch; they ride the fused config key
@@ -624,8 +677,13 @@ class HashAggOp(Operator):
         self._ia_wide = False
 
     def widen(self):
-        """FlowRestart remedy: double the accumulator expansion (group
-        overflow) and re-seed the key hash (collision)."""
+        """FlowRestart remedy: a tripped range-dense flag (stale range)
+        turns that route off; otherwise double the accumulator expansion
+        (group overflow) and re-seed the key hash (collision)."""
+        if self._range_dense is not None:
+            self._range_dense = None
+            self.dense_range = None
+            return
         self.expansion *= 2
         self.seed += 1
 
@@ -675,6 +733,13 @@ class HashAggOp(Operator):
         return hash_aggregate(batch, self.group_by, self.internal,
                               seed=self.seed, method="hash", with_flag=True)
 
+    def _merge_partial(self, batch: Batch):
+        """A batch of partials re-aggregated with the merge functions,
+        with its 0-d collision flag (the grace path's per-partition
+        partial)."""
+        return hash_aggregate(batch, self.group_by, self._merge_aggs,
+                              seed=self.seed, method="hash", with_flag=True)
+
     def _dense_batches(self, device: torch.device) -> Iterator[Batch]:
         gb, internal, sizes = self.group_by, self.internal, self.dense_sizes
         acc = None
@@ -685,6 +750,26 @@ class HashAggOp(Operator):
                                                            internal)
         if acc is not None:
             yield self._final_project(acc.compact())
+
+    def _range_dense_batches(self, device: torch.device) -> Iterator[Batch]:
+        from cockroach_tpu_torch.ops.agg import range_dense_aggregate
+
+        gb, internal = self.group_by, self.internal
+        lo, span = self._range_dense
+        acc, flag = None, None
+        for b in self.child.batches(device):
+            with stats.timed("agg.fold"):
+                part, fl = range_dense_aggregate(b, gb[0], lo, span,
+                                                 internal)
+                acc = part if acc is None else dense_merge(acc, part, gb,
+                                                           internal)
+                flag = fl if flag is None else flag | fl
+        if acc is not None:
+            yield self._final_project(acc)
+            # the deferred check: ONE readback; a stale range reruns the
+            # flow with the route off
+            if bool(flag):
+                raise FlowRestart(self)
 
     def _empty_scalar(self, device: torch.device) -> Batch:
         """The scalar aggregate over no rows: one row (count 0, NULL
@@ -697,29 +782,41 @@ class HashAggOp(Operator):
         return hash_aggregate(empty, self.group_by, self.internal)
 
     def batches(self, device: torch.device) -> Iterator[Batch]:
+        from cockroach_tpu_torch.exec.spill import estimate_row_bytes
+
+        row_bytes = estimate_row_bytes(self._internal_schema)
         # over MapOp* -> a resident ScanOp the stream below reads the
         # scan's image chunk by chunk: the JAX package's stacked fold,
-        # which it compiles as one program, is this same loop eagerly
+        # which it compiles as one program (and declines for the
+        # range-dense route and past workmem), is this same loop eagerly
         src = _source_scan(self.child)
-        if src is not None and src[1].has_image(device):
+        stacked = src is not None and src[1].has_image(device)
+        if stacked and self.dense_sizes is None:
+            acc_cap = _pow2_at_least(src[1].capacity * self.expansion)
+            stacked = self._range_dense is None and not (
+                self.group_by and acc_cap * row_bytes > self.workmem)
+        if stacked:
             stats.add("agg.fold_stacked")
         if self.dense_sizes is not None:
             yield from self._dense_batches(device)
             return
-        row_bytes = _row_bytes(self._internal_schema)
+        if self._range_dense is not None:
+            yield from self._range_dense_batches(device)
+            return
         acc: Optional[Batch] = None
         overflow = None
         acc_cap = 0
-        for b in self.child.batches(device):
+        it = self.child.batches(device)
+        for b in it:
             with stats.timed("agg.fold"):
                 part, coll = self._partial(b)
                 if acc is None:
                     acc_cap = _pow2_at_least(part.capacity * self.expansion)
                     if self.group_by and acc_cap * row_bytes > self.workmem:
-                        raise NotImplementedError(
-                            "HashAggOp: the accumulator exceeds workmem and "
-                            "the grace (out-of-core) aggregation is not "
-                            "ported yet (ROADMAP.md queue 1)")
+                        # the accumulator would pass the budget: go out
+                        # of core before allocating it
+                        yield from self._grace_batches(part, it, device)
+                        return
                     overflow = (part.length > acc_cap) | coll
                     acc = _grow_to(part, acc_cap)
                 else:
@@ -735,6 +832,67 @@ class HashAggOp(Operator):
         # the final batch
         if self.group_by and bool(overflow):
             raise FlowRestart(self)
+
+    def _grace_batches(self, first_part: Batch, rest: Iterator[Batch],
+                       device: torch.device) -> Iterator[Batch]:
+        """Out-of-core GROUP BY: spill the per-batch partials (already
+        key-compressed) into host partitions by group-key hash, then
+        merge-aggregate each partition on the device. Partitions share no
+        keys, so the union of the per-partition results is exact (the
+        reference's external hash aggregator, colexecdisk, via
+        hashBasedPartitioner)."""
+        from cockroach_tpu_torch.exec import spill as _spill
+
+        stats.add("agg.grace_spill")
+        row_bytes = _spill.estimate_row_bytes(self._internal_schema)
+        # the per-partition fold capacity, sized to the budget
+        cap = 1 << 10
+        while cap * 2 * row_bytes <= self.workmem and cap < (1 << 22):
+            cap *= 2
+        P = _spill.DEFAULT_NUM_PARTITIONS * self.expansion
+        gp = _spill.GracePartitioner(self.group_by, num_partitions=P)
+        try:
+            gp.consume(first_part)
+            for b in rest:
+                gp.consume(self._partial(b)[0])
+            for p in range(P):
+                if gp.partitions[p].n_rows == 0:
+                    continue
+                # a partition whose groups pass its fold capacity reruns
+                # ALONE at twice the capacity: spilled blocks replay, so
+                # the rest of the flow does not restart
+                local_cap = cap
+                for attempt in range(4):
+                    src = _spill.BlockSource(gp.partitions[p],
+                                             self._internal_schema, cap)
+                    acc = None
+                    overflow = None
+                    for b in src.batches(device):
+                        with stats.timed("agg.fold"):
+                            part, coll = self._merge_partial(b)
+                            if acc is None:
+                                overflow = (part.length > local_cap) | coll
+                                acc = _grow_to(part, local_cap)
+                            else:
+                                acc, ovf = _fold_step(
+                                    acc, part, local_cap, self.group_by,
+                                    self._merge_aggs, seed=self.seed)
+                                overflow = overflow | ovf | coll
+                    if acc is None:
+                        break
+                    if bool(overflow):
+                        # bounded growth (at most 8 x the budgeted fold
+                        # capacity); past that the flow restarts with
+                        # more partitions
+                        if attempt == 3:
+                            raise FlowRestart(self)
+                        local_cap *= 2
+                        stats.add("agg.grace_partition_retry")
+                        continue
+                    yield self._final_project(acc)
+                    break
+        finally:
+            gp.close()
 
 
 class OrderedAggOp(HashAggOp):
@@ -758,27 +916,37 @@ class JoinOp(Operator):
 
     The build is held in memory: each build batch is compacted, and the
     parts are repacked once into one batch of capacity pow2(sum of the
-    batch capacities). It starts in mode "unique-mat", the sort join for
-    unique build keys (ops/sortjoin.py), where the JAX package's JoinOp
-    starts at "unique" and runs it as "unique-mat" too: the port has no
-    payload-carry path, so its ladder skips that rung. widen() walks
-    unique-mat -> expand -> doubled output expansion when the deferred
-    flag (duplicate build key, out-of-range key, expansion overflow) is
-    raised at the end of the probe stream. Right/full-outer joins emit
-    the unmatched build rows after the stream.
+    batch capacities). It starts in mode "unique", the payload-carry sort
+    join for unique build keys (ops/sortjoin.py), which the streaming
+    probe runs as "unique-mat", the row-matrix sort join, as the JAX
+    package's JoinOp does (the fused tier runs the carry). widen() walks
+    unique -> unique-mat -> expand -> doubled output expansion when the
+    deferred flag (duplicate build key, out-of-range key, a carry payload
+    past 62 bits, expansion overflow) is raised at the end of the probe
+    stream. Right/full-outer joins emit the unmatched build rows after
+    the stream.
 
-    A build past `workmem` needs the grace path, which is not ported yet
-    and raises."""
+    Out of core: when the build passes `workmem` while it materializes,
+    the join switches to Grace partitioning mid-build (exec/spill.py):
+    what is buffered and the rest of both streams go into host
+    partitions by join-key hash, and each partition pair joins on the
+    device in a sub-JoinOp one `grace_level` deeper (the reference's
+    diskSpiller + hashBasedPartitioner, disk_spiller.go:208,
+    hash_based_partitioner.go:115). At MAX_GRACE_LEVELS the build stays
+    in memory."""
 
     def __init__(self, probe: Operator, build: Operator,
                  probe_on: Sequence[str], build_on: Sequence[str],
-                 how: str = "inner"):
+                 how: str = "inner", expansion: int = 1,
+                 workmem: Optional[int] = None, grace_level: int = 0,
+                 build_mode: str = "unique"):
         self.probe, self.build = probe, build
         self.probe_on, self.build_on = list(probe_on), list(build_on)
         self.how = how
-        self.expansion = 1              # output capacity multiplier
-        self.build_mode = "unique-mat"  # widen() walks the ladder from here
-        self.workmem = Settings().get(WORKMEM)
+        self.expansion = expansion      # output capacity multiplier
+        self.build_mode = build_mode    # widen() walks the ladder from here
+        self.workmem = Settings().get(WORKMEM) if workmem is None else workmem
+        self.grace_level = grace_level
         if how in ("semi", "anti"):
             self.schema = probe.schema
         else:
@@ -790,6 +958,12 @@ class JoinOp(Operator):
             self.schema = Schema(
                 list(probe.schema.fields) + list(build.schema.fields), dicts)
 
+    def _budget_rows(self) -> int:
+        from cockroach_tpu_torch.exec.spill import estimate_row_bytes
+
+        return max(1, self.workmem
+                   // max(estimate_row_bytes(self.build.schema), 1))
+
     def _try_stacked_build(self, device: torch.device) -> Optional[Batch]:
         """The build side from a resident image in one pass, when the
         build chain is MapOp* -> ScanOp and the scan's image is on the
@@ -797,8 +971,10 @@ class JoinOp(Operator):
         make_flat_unpack), run the map chain once, compact, and repack to
         exactly the batch the chunked build gives, row for row. None when
         the scan has no image or one chunk, and when the build could pass
-        `workmem` (the chunked path then raises, as the grace join is not
-        ported). Counts `join.build_stacked`."""
+        `workmem` (the chunked path then streams into the grace join).
+        Counts `join.build_stacked`."""
+        from cockroach_tpu_torch.exec.spill import MAX_GRACE_LEVELS
+
         src = _source_scan(self.build)
         if src is None:
             return None
@@ -809,9 +985,8 @@ class JoinOp(Operator):
             # concatenation to save
             return None
         cap_sum = len(image.ms_host) * scan.capacity
-        budget_rows = max(1, self.workmem
-                          // max(_row_bytes(self.build.schema), 1))
-        if cap_sum > budget_rows:
+        if (self.grace_level < MAX_GRACE_LEVELS
+                and cap_sum > self._budget_rows()):
             return None
         runs = [m._run for m in reversed(maps)]
         with stats.timed("join.build"):
@@ -822,44 +997,129 @@ class JoinOp(Operator):
         stats.add("join.build_stacked")
         return built
 
-    def _materialize_build(self, device: torch.device) -> Optional[Batch]:
-        """The whole build side as one compact batch on the device, or
-        None when it has no batches."""
+    def _materialize_build(self, device: torch.device):
+        """-> ("mem", the whole build side as one compact batch on the
+        device, or None when it has no batches) or ("grace", a
+        GracePartitioner holding the whole build stream)."""
+        from cockroach_tpu_torch.exec import spill as _spill
+
         built = self._try_stacked_build(device)
         if built is not None:
-            return built
-        budget_rows = max(1, self.workmem
-                          // max(_row_bytes(self.build.schema), 1))
+            return "mem", built
+        budget_rows = self._budget_rows()
+        # at the deepest level the partition stays in memory, best effort
+        # (the reference likewise stops repartitioning on skew)
+        spilling_allowed = self.grace_level < _spill.MAX_GRACE_LEVELS
         parts: List[Batch] = []
         cap_sum = 0
         # join.build times this operator's own work only: the child
-        # stream's production bills its own stages
-        for b in self.build.batches(device):
-            if cap_sum + b.capacity > budget_rows:
-                raise NotImplementedError(
-                    "JoinOp: the build side exceeds workmem and the grace "
-                    "(out-of-core) join is not ported yet (ROADMAP.md "
-                    "queue 1)")
+        # stream's production bills its own stages. The read-ahead pulls
+        # the next batch (a replayed partition's copy) early
+        it = _read_ahead(self.build.batches(device))
+        for b in it:
             with stats.timed("join.build"):
-                parts.append(b.compact())
-            cap_sum += b.capacity
+                part = b.compact()
+            # the budget decision reads capacities (a sync-free bound on
+            # the live rows), before the build grows past it
+            if spilling_allowed and cap_sum + part.capacity > budget_rows:
+                gp = _spill.GracePartitioner(
+                    self.build_on,
+                    num_partitions=_spill.DEFAULT_NUM_PARTITIONS,
+                    level=self.grace_level)
+                try:
+                    with stats.timed("join.build"):
+                        for p in parts:
+                            gp.consume(p)
+                        gp.consume(part)
+                    parts = []
+                    for rest in it:
+                        with stats.timed("join.build"):
+                            gp.consume(rest)
+                except BaseException:
+                    # a FlowRestart (or fault) from the build stream
+                    # mid-partitioning: release the spill accounting
+                    # before the flow unwinds
+                    gp.close()
+                    raise
+                return "grace", gp
+            parts.append(part)
+            cap_sum += part.capacity
         if not parts:
-            return None
+            return "mem", None
         if len(parts) == 1:
-            return _repack_build(parts[0], cap_sum)
+            return "mem", _repack_build(parts[0], cap_sum)
         with stats.timed("join.build"):
-            return _repack_build(concat_batches(parts).compact(), cap_sum)
+            return "mem", _repack_build(concat_batches(parts).compact(),
+                                        cap_sum)
+
+    def _grace_batches(self, build_gp, device: torch.device
+                       ) -> Iterator[Batch]:
+        """Partition the probe stream the same way, then join partition
+        pairs on the device: rows can only match within their shared
+        hash partition, so this is correct for every join type."""
+        from cockroach_tpu_torch.exec import spill as _spill
+
+        # the try starts BEFORE the probe partitioning: a FlowRestart (or
+        # fault) from the probe stream must not leak either partitioner's
+        # host-spill accounting
+        probe_gp = _spill.GracePartitioner(
+            self.probe_on, num_partitions=build_gp.P, level=self.grace_level)
+        try:
+            # the partition sort puts the live rows first in their own
+            # order, as compacting first would
+            for b in self.probe.batches(device):
+                probe_gp.consume(b)
+            # replay partitions in batches that each fit the budget, so
+            # every recursion level makes progress toward an in-memory
+            # join
+            budget_rows = self._budget_rows()
+            parent_cap = getattr(self.probe, "capacity", None) or 1 << 16
+            capacity = 256
+            while capacity * 2 <= budget_rows and capacity < parent_cap:
+                capacity *= 2
+            for p in range(build_gp.P):
+                probe_src = _spill.BlockSource(
+                    probe_gp.partitions[p], self.probe.schema, capacity)
+                build_src = _spill.BlockSource(
+                    build_gp.partitions[p], self.build.schema, capacity)
+                sub = JoinOp(probe_src, build_src, self.probe_on,
+                             self.build_on, how=self.how,
+                             expansion=self.expansion, workmem=self.workmem,
+                             grace_level=self.grace_level + 1,
+                             build_mode=self.build_mode)
+                # the partition's output is buffered, so a FlowRestart
+                # reruns just this partition
+                for attempt in range(9):
+                    try:
+                        out = list(sub.batches(device))
+                        break
+                    except FlowRestart:
+                        if attempt == 8:
+                            raise
+                        sub.widen()
+                yield from out
+        finally:
+            probe_gp.close()
+            build_gp.close()
 
     def widen(self):
-        """FlowRestart remedy — descend the mode ladder: unique-mat (flags
-        on duplicate build keys) -> expand -> doubled output expansion."""
+        """FlowRestart remedy — descend the mode ladder: payload-carry
+        unique ("unique", flags when the packed payload passes 62 bits)
+        -> row-matrix unique ("unique-mat", flags on duplicate build keys)
+        -> expand -> doubled output expansion. It reads the EFFECTIVE
+        mode: a join statically downgraded (a wide build side) already
+        runs expand, so its first restart widens."""
         from cockroach_tpu_torch.ops.join import effective_build_mode
 
         eff = effective_build_mode(self.build_mode, self.build.schema.names(),
                                    self.build_on)
-        if eff == "expand":
+        if eff == "unique":
+            self.build_mode = "unique-mat"
+        elif eff == "unique-mat":
+            self.build_mode = "expand"
+        else:
+            self.build_mode = "expand"
             self.expansion *= 2
-        self.build_mode = "expand"
 
     def batches(self, device: torch.device) -> Iterator[Batch]:
         from cockroach_tpu_torch.ops.join import (
@@ -867,7 +1127,11 @@ class JoinOp(Operator):
             prepare_build,
         )
 
-        build = self._materialize_build(device)
+        kind, build = self._materialize_build(device)
+        if kind == "grace":
+            stats.add("join.grace_spill")
+            yield from self._grace_batches(build, device)
+            return
         per_batch_how = {"outer": "left", "right": "inner"}.get(self.how,
                                                                  self.how)
         if build is None:
@@ -889,6 +1153,11 @@ class JoinOp(Operator):
 
         mode = effective_build_mode(self.build_mode, self.build.schema.names(),
                                     self.build_on)
+        if mode == "unique":
+            # the streaming probe takes the row-matrix join, as the JAX
+            # package's does: a carry payload-width restart would rerun
+            # the whole flow (the fused tier keeps the carry)
+            mode = "unique-mat"
         with stats.timed("join.build"):
             bt = prepare_build(build, self.build_on, mode=mode)
         track_r = self.how in ("right", "outer")
@@ -921,31 +1190,153 @@ class JoinOp(Operator):
 # --------------------------------------------------------------------- sort
 
 class SortOp(Operator):
-    """ORDER BY, in memory: compact every batch, concatenate, sort once.
-    Input beyond `workmem` needs the external sort, which is not ported
-    yet and raises."""
+    """ORDER BY. In memory when the input fits `workmem` (compact every
+    batch, concatenate, sort once); otherwise an EXTERNAL sort: each
+    batch is sorted on the device and read back with its sorted integer
+    sort keys (ops/sort.py lex_keys) into host RAM, and the host merges
+    the sorted runs with a binary tree of linear two-way merges over a
+    packed 64-bit key (`_merge_sorted_runs`), then emits ordered
+    capacity-sized batches (the reference's external sort shape,
+    colexecdisk/external_sort.go): the device does the O(n log n) work,
+    the host the O(n log R) merge."""
 
-    def __init__(self, child: Operator, keys: Sequence[SortKey]):
+    def __init__(self, child: Operator, keys: Sequence[SortKey],
+                 workmem: Optional[int] = None):
         self.child = child
         self.keys = list(keys)
         self.schema = child.schema
-        self.workmem = Settings().get(WORKMEM)
+        self.workmem = Settings().get(WORKMEM) if workmem is None else workmem
 
     def batches(self, device: torch.device) -> Iterator[Batch]:
-        budget_rows = max(1, self.workmem // max(_row_bytes(self.schema), 1))
+        from cockroach_tpu_torch.exec.spill import estimate_row_bytes
+
+        budget_rows = max(1, self.workmem
+                          // max(estimate_row_bytes(self.schema), 1))
         parts: List[Batch] = []
-        rows = 0
-        for b in self.child.batches(device):
-            rows += b.capacity
-            if rows > budget_rows:
-                raise NotImplementedError(
-                    "SortOp: input exceeds workmem and the external sort is "
-                    "not ported yet (ROADMAP.md queue 1)")
-            parts.append(b.compact())
+        cap_sum = 0
+        it = self.child.batches(device)
+        for b in it:
+            part = b.compact()
+            if cap_sum + part.capacity > budget_rows:
+                yield from self._external_batches(parts, part, it, device)
+                return
+            parts.append(part)
+            cap_sum += part.capacity
         if not parts:
             return
         merged = parts[0] if len(parts) == 1 else concat_batches(parts)
         yield sort_batch(merged, self.keys, self.child.schema)
+
+    def _external_batches(self, buffered: List[Batch], first: Batch,
+                          it: Iterator[Batch], device: torch.device
+                          ) -> Iterator[Batch]:
+        """The external sort: every run sorted on the device before it
+        spills (its batch and its sorted integer keys, one readback
+        each: `sort.device_run` times both), the runs merged on the host
+        (`sort.host_merge`), and the result replayed in capacity-sized
+        batches (`spill.replay`)."""
+        from cockroach_tpu_torch.exec import spill as _spill
+        from cockroach_tpu_torch.ops.sort import lex_keys
+
+        stats.add("sort.external_spill")
+        keys, schema = self.keys, self.child.schema
+        acct = _spill.host_spill_monitor().make_account()
+        runs: List[Tuple[_spill.SpilledBlock, List[np.ndarray]]] = []
+        try:
+            def spill_one(b: Batch):
+                with stats.timed("sort.device_run"):
+                    s = sort_batch(b, keys, schema)
+                    lk = lex_keys(s, keys, schema)
+                    block = _spill.batch_to_block(s)
+                    n = block.n_rows
+                    host_keys = [k[:n].cpu().numpy() for k in lk]
+                acct.grow(block.nbytes + sum(k.nbytes for k in host_keys))
+                stats.add("spill.write", rows=n, bytes=block.nbytes)
+                runs.append((block, host_keys))
+
+            for b in buffered:
+                spill_one(b)
+            spill_one(first)
+            for rest in it:
+                spill_one(rest)
+
+            with stats.timed("sort.host_merge"):
+                order = _merge_sorted_runs(runs)
+                total = order.shape[0]
+                cols: Dict[str, np.ndarray] = {}
+                for f in self.schema:
+                    cols[f.name] = np.concatenate(
+                        [r[0].values[f.name] for r in runs])[order]
+                    vs = [r[0].validity[f.name] for r in runs]
+                    if any(v is not None for v in vs):
+                        cols["__valid_" + f.name] = np.concatenate([
+                            v if v is not None
+                            else np.ones(r[0].n_rows, bool)
+                            for r, v in zip(runs, vs)])[order]
+            cap = getattr(self.child, "capacity", None) or 1 << 16
+            for a in range(0, total, cap):
+                n = min(cap, total - a)
+                chunk = {k: v[a:a + n] for k, v in cols.items()}
+                with stats.timed("spill.replay", rows=n, bytes=sum(
+                        v.nbytes for v in chunk.values())):
+                    out = _spill.upload_chunk(chunk, n, self.schema, cap,
+                                              device)
+                yield out
+        finally:
+            acct.close()
+
+
+def _merge_sorted_runs(runs) -> np.ndarray:
+    """Global order over the concatenation of sorted runs.
+
+    runs: [(SpilledBlock, [lexsort key arrays, least-significant first])]
+    where each run's rows are ALREADY in key order. Packs all key columns
+    into one uint64 per row using their measured ranges, then merges runs
+    pairwise with linear searchsorted interleaves (a binary merging
+    tree). When the combined key bits exceed 64, one np.lexsort over the
+    concatenation — still correct, no longer merge-shaped."""
+    n_keys = len(runs[0][1])
+    all_keys = [np.concatenate([r[1][i] for r in runs])
+                for i in range(n_keys)]
+    lengths = [r[0].n_rows for r in runs]
+    if sum(lengths) == 0:
+        return np.zeros(0, dtype=np.int64)
+    starts = np.cumsum([0] + lengths[:-1])
+
+    bits, los = [], []
+    for k in all_keys:  # least-significant first
+        lo, hi = int(k.min()), int(k.max())
+        span = hi - lo + 1
+        bits.append(max(1, int(span - 1).bit_length()))
+        los.append(lo)
+    if sum(bits) > 64:
+        return np.lexsort(all_keys)
+
+    packed = np.zeros(sum(lengths), dtype=np.uint64)
+    shift = 0
+    for k, b, lo in zip(all_keys, bits, los):
+        packed |= (k.astype(np.int64) - lo).astype(np.uint64) << np.uint64(
+            shift)
+        shift += b
+
+    merged = [(packed[s:s + n], np.arange(s, s + n, dtype=np.int64))
+              for s, n in zip(starts, lengths)]
+    while len(merged) > 1:
+        nxt = []
+        for i in range(0, len(merged) - 1, 2):
+            (ka, ia), (kb, ib) = merged[i], merged[i + 1]
+            # stable two-way merge: a's elements before equal b elements
+            pos_a = np.arange(len(ka)) + np.searchsorted(kb, ka, "left")
+            pos_b = np.arange(len(kb)) + np.searchsorted(ka, kb, "right")
+            k = np.empty(len(ka) + len(kb), dtype=np.uint64)
+            idx = np.empty(len(ka) + len(kb), dtype=np.int64)
+            k[pos_a], k[pos_b] = ka, kb
+            idx[pos_a], idx[pos_b] = ia, ib
+            nxt.append((k, idx))
+        if len(merged) % 2:
+            nxt.append(merged[-1])
+        merged = nxt
+    return merged[0][1]
 
 
 class TopKOp(Operator):
@@ -1096,6 +1487,34 @@ def walk_operators(op: Operator):
 
 MAX_RESTARTS = 8
 
+SPILL_TIER_WORKMEM = Settings.register(
+    "sql.resilience.spill_workmem_bytes",
+    32 << 20,
+    "per-operator workmem while running the forced-spill ladder tier "
+    "(small enough that every blocking operator takes its Grace/external "
+    "out-of-core path)",
+)
+
+
+def _clamp_workmem_for_spill(op: Operator) -> Callable[[], None]:
+    """Clamp every operator's workmem to the spill rung's budget, so the
+    blocking operators take their Grace and external paths (the ladder's
+    analog of disk_spiller.go:208 swapping in the disk-backed operator).
+    Returns the restore callable: the clamp must not outlive the rung."""
+    limit = int(Settings().get(SPILL_TIER_WORKMEM))
+    saved: List[Tuple[Operator, int]] = []
+    for sub in walk_operators(op):
+        wm = getattr(sub, "workmem", None)
+        if wm is not None and wm > limit:
+            saved.append((sub, wm))
+            sub.workmem = limit
+
+    def restore():
+        for sub, wm in saved:
+            sub.workmem = wm
+
+    return restore
+
 
 def _run_tier(driver, reset: Callable[[], None],
               consume: Callable[[Batch], None], device: torch.device) -> None:
@@ -1138,16 +1557,18 @@ def run_flow(op: Operator, reset: Callable[[], None],
     """Drive the flow to completion on `device`, streaming each output
     batch to `consume`, down the degradation ladder: the fused whole-query
     program (exec/fused.py) when the tree fits its grammar and `fuse` is
-    set, then the streaming operators. Within a tier, on FlowRestart the
-    failed operator widens and the whole flow reruns from the scans
-    (`reset` discards the sink's partial output first). Each rung has a
-    process-wide circuit breaker (util/circuit.py): a tier that keeps
-    failing trips open, and later queries skip past it. A RESOURCE error
-    (device memory) steps down one rung and counts
-    `resilience.degrade.<tier>`; a TERMINAL error (a CUDA fault, a logic
-    error) propagates from any rung. The JAX package's third rung, the
-    forced spill, comes with the out-of-core paths (ROADMAP.md queue 1,
-    item 3)."""
+    set, then the streaming operators, then the forced spill: the same
+    operators with every workmem clamped to
+    `sql.resilience.spill_workmem_bytes`, so each blocking operator goes
+    out of core (exec/spill.py); the clamp is undone when the rung ends.
+    Within a tier, on FlowRestart the failed operator widens and the
+    whole flow reruns from the scans (`reset` discards the sink's partial
+    output first). Each rung has a process-wide circuit breaker
+    (util/circuit.py): a tier that keeps failing trips open, and later
+    queries skip past it. A RESOURCE error (device memory, a memory
+    budget) steps down one rung and counts `resilience.degrade.<tier>`;
+    on the last rung it propagates. A TERMINAL error (a CUDA fault, a
+    logic error) propagates from any rung."""
     from cockroach_tpu_torch.util import circuit as _circuit
     from cockroach_tpu_torch.util import retry as _retry
 
@@ -1164,6 +1585,7 @@ def run_flow(op: Operator, reset: Callable[[], None],
         if runner is not None:
             tiers.append(("fused", runner))
     tiers.append(("streaming", op))
+    tiers.append(("spill", op))
 
     for i, (tier, driver) in enumerate(tiers):
         last_tier = i == len(tiers) - 1
@@ -1175,8 +1597,14 @@ def run_flow(op: Operator, reset: Callable[[], None],
             # every rung is tripped but the query still has to run: the
             # final rung runs as a forced probe
             stats.add(f"resilience.forced.{tier}")
+        restore = (_clamp_workmem_for_spill(op) if tier == "spill"
+                   else None)
         try:
-            _run_tier(driver, reset, consume, device)
+            try:
+                _run_tier(driver, reset, consume, device)
+            finally:
+                if restore is not None:
+                    restore()
         except FlowRestart:
             # widening exhausted: every tier runs the same plan shapes
             raise

@@ -23,8 +23,10 @@ operation over the sorted view, read at each run's end:
 Integer sums wrap mod 2^64 exactly as the JAX package's do; group order
 (the hash order with method="hash") equals the JAX package's bit for bit.
 
-range_dense_aggregate is not ported yet (ROADMAP.md queue 1 item 1): the
-JAX planner never picks it.
+range_dense_aggregate is the direct-address GROUP BY over one integer
+key of a known value range: a scatter of each row into the lane of its
+key. HashAggOp takes it when given `dense_range`; the JAX planner's hint
+that would give it stays off (sql/plan.py ENABLE_RANGE_DENSE_HINT).
 """
 
 from __future__ import annotations
@@ -72,10 +74,87 @@ class AggSpec:
             raise ValueError("wide accumulation applies to sum only")
 
 
-def range_dense_aggregate(*args, **kwargs):
-    raise NotImplementedError(
-        "range_dense_aggregate is not ported yet (ROADMAP.md queue 1 item "
-        "1: the JAX planner never picks it)")
+RANGE_DENSE_FUNCS = ("sum", "count", "count_star", "min", "max",
+                     "sum_hi32", "sum_lo32")
+
+
+def range_dense_aggregate(batch: Batch, key_name: str, lo: int, span: int,
+                          aggs: Sequence[AggSpec]):
+    """GROUP BY over ONE integer key with a known value range
+    [lo, lo + span): the group of key k lives at lane k - lo, a pure
+    scatter aggregation (index_add_ / scatter_reduce_ into span + 1 lanes,
+    whose last is the drop slot of dead and out-of-range rows). No sort,
+    no gather, no hash.
+
+    -> (Batch of span lanes, 0-d out-of-range flag). A live row whose key
+    falls outside the range, or is NULL, raises the deferred flag; the
+    restart disables this path. Output merges lane-wise with dense_merge.
+    Integer sums wrap mod 2^64 exactly; a float32 sum on CUDA adds in an
+    order the atomics choose."""
+    c = batch.col(key_name)
+    dev = batch.device
+    key = c.values.to(torch.int64)
+    live = batch.sel if c.validity is None else (batch.sel & c.validity)
+    idx = key - lo
+    in_range = (idx >= 0) & (idx < span)
+    flag = torch.any(live & ~in_range)
+    if c.validity is not None:
+        # SQL groups NULL keys as their own group; the direct-address
+        # space has no NULL slot: a live NULL key disables this path
+        flag = flag | torch.any(batch.sel & ~c.validity)
+    ok = live & in_range
+    at = torch.where(ok, idx, span)
+
+    present = torch.zeros(span + 1, dtype=torch.bool, device=dev)
+    present.index_fill_(0, at, True)
+    present = present[:span]
+    out_cols: dict = {key_name: Column(
+        (torch.arange(span, dtype=torch.int64, device=dev) + lo)
+        .to(c.values.dtype))}
+    counts_cache: dict = {}
+
+    def scatter_add(src_ok, vals, dtype):
+        out = torch.zeros(span + 1, dtype=dtype, device=dev)
+        out.index_add_(0, torch.where(src_ok, at, span), vals)
+        return out[:span]
+
+    def live_count(col: Optional[str]):
+        if col not in counts_cache:
+            src = ok if col is None else (ok & batch.col(col).valid_mask())
+            counts_cache[col] = scatter_add(
+                src, torch.ones_like(at), torch.int64)
+        return counts_cache[col]
+
+    for a in aggs:
+        if a.func not in RANGE_DENSE_FUNCS:
+            raise AssertionError(f"range-dense unsupported: {a.func}")
+        if a.func == "count_star":
+            out_cols[a.out] = Column(live_count(None))
+            continue
+        vc = batch.col(a.col)
+        vlive = ok & vc.valid_mask()
+        any_live = live_count(a.col) > 0
+        if a.func == "count":
+            out_cols[a.out] = Column(live_count(a.col))
+        elif a.func in ("sum", "sum_hi32", "sum_lo32"):
+            v = vc.values
+            if a.func != "sum":
+                v = _wide_half(a.func, v)
+            acc = torch.float32 if v.dtype.is_floating_point else v.dtype
+            vv = torch.where(vlive, v, torch.zeros((), dtype=v.dtype,
+                                                   device=dev)).to(acc)
+            out_cols[a.out] = Column(scatter_add(vlive, vv, acc), any_live)
+        else:  # min / max
+            ident = _identity(a.func, vc.values.dtype)
+            init = torch.full((span + 1,), ident, dtype=vc.values.dtype,
+                              device=dev)
+            vv = torch.where(vlive, vc.values, ident)
+            init.scatter_reduce_(0, torch.where(vlive, at, span), vv,
+                                 reduce="amin" if a.func == "min"
+                                 else "amax")
+            out_cols[a.out] = Column(init[:span], any_live)
+    out_cols = mask_padding(out_cols, present)
+    return Batch(out_cols, present, present.sum(dtype=torch.int32)), flag
 
 
 def _identity(func: str, dtype: torch.dtype):

@@ -1,9 +1,13 @@
 """Equi-join kernels: inner / left / right / full outer / semi / anti.
 
-Counterpart of cockroach_tpu/ops/join.py. Two build modes:
+Counterpart of cockroach_tpu/ops/join.py. Three build modes, the rungs
+JoinOp.widen walks down:
 
-- "unique-mat" (ops/sortjoin.py): the sort join for unique build keys —
-  every FK->PK join; a duplicate key raises the deferred fallback flag;
+- "unique" (ops/sortjoin.py, the payload carry): the sort join for
+  unique integer build keys whose other columns bit-pack into 62 bits;
+- "unique-mat" (ops/sortjoin.py): the sort join for unique build keys
+  with a row-matrix gather — every FK->PK join; a duplicate key raises
+  the deferred fallback flag;
 - "expand": the general many-to-many path here:
   1. hash the build keys, argsort the build rows by hash;
   2. per probe row, a search gives the [lo, hi) candidate range;
@@ -19,8 +23,8 @@ Hashes are int64 lanes holding uint64 bits; every sort and search runs on
 their int64 image `^ SIGN` (ops/hash.py unsigned_order), which keeps the
 JAX package's unsigned order.
 
-merge_join and the payload-carry mode "unique" are not ported
-(ROADMAP.md queue 1).
+merge_join probes a build side already sorted on its single integer key
+with the same core, searching the raw key values.
 """
 
 from __future__ import annotations
@@ -71,16 +75,14 @@ def effective_build_mode(mode: str, build_names: Sequence[str],
 
 def prepare_build(right: Batch, right_on: Sequence[str], seed: int = 0,
                   mode: str = "expand"):
-    """Prepare the build side for probing: "unique-mat" -> the sort join
-    (ops/sortjoin.py); "expand" -> the general hash-sort path."""
-    if mode == "unique":
-        raise NotImplementedError(
-            "the payload-carry join is not ported yet (ROADMAP.md queue "
-            "1); the streaming JoinOp uses unique-mat")
-    if mode == "unique-mat":
+    """Prepare the build side for probing: "unique" -> the payload-carry
+    sort join, "unique-mat" -> the row-matrix sort join (ops/sortjoin.py);
+    "expand" -> the general hash-sort path."""
+    if mode in ("unique", "unique-mat"):
         from cockroach_tpu_torch.ops.sortjoin import prepare_unique
 
-        return prepare_unique(right, right_on, seed=seed)
+        return prepare_unique(right, right_on, seed=seed,
+                              carry=(mode == "unique"))
     from cockroach_tpu_torch.ops.search import run_ends
 
     hr = hash_columns(right, right_on, seed=seed)
@@ -113,6 +115,40 @@ def hash_join(left: Batch, right: Batch, left_on: Sequence[str],
     return hash_join_prepared(left, prepare_build(right, right_on, seed, mode),
                               left_on, right_on, how=how,
                               out_capacity=out_capacity)
+
+
+def merge_join(left: Batch, right: Batch, left_on: Sequence[str],
+               right_on: Sequence[str], how: str = "inner",
+               out_capacity: Optional[int] = None) -> JoinResult:
+    """Equi-join when the BUILD side is already sorted on its single join
+    key (reference NewMergeJoinOp, colexecjoin/mergejoiner.go:302): no
+    hashing and no build hash sort; probe positions come from one search
+    on the raw key values, run extents from adjacency. Multi-column or
+    float keys go to hash_join.
+
+    Precondition: right's selected rows are sorted ascending (NULLs
+    anywhere — they never match). left need not be sorted."""
+    if how not in JOIN_TYPES:
+        raise ValueError(f"unknown join type {how}")
+    lc = left.col(left_on[0]) if len(left_on) == 1 else None
+    rc = right.col(right_on[0]) if len(right_on) == 1 else None
+    if (lc is None or rc is None or lc.values.dtype.is_floating_point
+            or rc.values.dtype.is_floating_point):
+        return hash_join(left, right, left_on, right_on, how=how,
+                         out_capacity=out_capacity)
+    from cockroach_tpu_torch.ops.search import run_ends
+
+    top = torch.iinfo(torch.int64).max
+    rkey = torch.where(right.sel & rc.valid_mask(),
+                       rc.values.to(torch.int64), top)
+    # dead and NULL lanes may interleave the sorted live rows: one stable
+    # argsort restores a clean layout
+    rkey_sorted, order = torch.sort(rkey, stable=True)
+    lkey = torch.where(left.sel & lc.valid_mask(),
+                       lc.values.to(torch.int64), top - 1)
+    return _probe_sorted(left, right, order, rkey_sorted,
+                         run_ends(rkey_sorted), lkey, left_on, right_on,
+                         how, out_capacity)
 
 
 def hash_join_prepared(left: Batch, build, left_on: Sequence[str],

@@ -1,31 +1,42 @@
-"""Unique-build equi-join: two narrow sorts, one cummax broadcast and one
-row-matrix gather.
+"""Unique-build equi-join: two narrow sorts, a cummax broadcast and, on
+the row-matrix path, one row gather.
 
-Counterpart of the row-matrix path of cockroach_tpu/ops/sortjoin.py
-(prepare_unique with carry=False, probe_unique down its `mat` branch):
+Counterpart of cockroach_tpu/ops/sortjoin.py (`prepare_unique`,
+`_probe_carry`, `probe_unique`):
 
-  1. pack each row's join key and a build/probe tag bit into ONE 64-bit
-     sort key (the raw biased value for a single integer key — exact; a
-     62-bit hash otherwise). Dead and NULL-key lanes get per-lane keys in
-     the top region (_TOP = bit 63);
-  2. sort [build ++ probe] by that key (its int64 image `^ SIGN`, so the
-     unsigned order holds and the top region sorts last), stable, keeping
-     the source index. Equal keys become adjacent, build row first;
-  3. a cummax over (runid << 32 | build index + 1) broadcasts each run's
-     build row to the run: a probe lane matches iff its run has one;
+  1. pack each row's join key and a build/probe tag bit into ONE sort key
+     (the raw biased value for a single integer key — exact; a 62-bit
+     hash otherwise). Dead and NULL-key lanes get per-lane keys in the
+     top region;
+  2. sort [build ++ probe] by that key, stable. Equal keys become
+     adjacent, build row first;
+  3. a cummax over (runid << 32 | value) broadcasts each run's build
+     lane to the run: a probe lane matches iff its run has one;
   4. a build lane that does not start its run means a duplicate build key
      (or a 62-bit hash collision): the deferred `fallback` flag tells the
-     flow to restart the join in the general expand mode (ops/join.py);
-  5. each lane's (matched build row << 1 | match) goes back to its probe
-     position — a scatter by destination, which is a permutation, in
-     place of the JAX package's second sort;
-  6. ONE (lcap, W) row gather pulls each matched build row's columns from
-     the build side's row matrix (ops/rowmat.py).
+     flow to restart the join one rung down (ops/join.py);
+  5. each probe lane's result goes back to its probe position — a
+     scatter by destination in place of the JAX package's second sort.
 
-Output capacity == probe capacity; the probe's columns never move.
+Two ways to move the build columns:
 
-The payload-carry path (_probe_carry, ops/bitpack.py) is not ported: the
-streaming JoinOp never takes it (ROADMAP.md queue 1).
+- the payload carry ("unique", `prepare_unique(carry=True)`,
+  `_probe_carry`): an integer-keyed build whose non-key columns bit-pack
+  (ops/bitpack.py) rides the sort as one 64-bit payload, broadcast to its
+  run by two cummaxes over 31-bit halves; no row gather. Its keys pack
+  narrow, as u32 values in [0, 2^30) (a key outside raises the range
+  flag), and sort as int32 in signed order (value - 2^31); a payload
+  over 62 bits raises the fallback flag;
+- the row matrix ("unique-mat"): the source index rides the sort, and
+  ONE (lcap, W) row gather pulls each matched build row's columns from
+  the build side's row matrix (ops/rowmat.py). A carry-prepared build
+  that reaches a path the carry does not cover (matched-build tracking,
+  right/outer) builds its row matrix and 64-bit keys there.
+
+Output capacity == probe capacity; the probe's columns never move. The
+JAX package's u64 lanes are int64 lanes here, shifted logically
+(ops/bitpack.py srl), sorted in unsigned order (ops/hash.py
+unsigned_order).
 """
 
 from __future__ import annotations
@@ -35,6 +46,7 @@ from typing import NamedTuple, Optional, Sequence
 import torch
 
 from cockroach_tpu_torch.coldata.batch import Batch, Column
+from cockroach_tpu_torch.ops.bitpack import srl
 from cockroach_tpu_torch.ops.hash import SIGN, flush_subnormal, unsigned_order
 from cockroach_tpu_torch.ops.rowmat import RowPlan, pack_rows, unpack_rows
 
@@ -44,16 +56,35 @@ _MASK62 = (1 << 62) - 1
 
 
 class UniqueBuild(NamedTuple):
-    """A build side prepared for the unique-key sort join."""
+    """A build side prepared for the unique-key sort join: the row matrix
+    (`mat`, `plan`), or the packed payload (`payv`, `pay_plan`) of the
+    carry, with u32 keys when `narrow`."""
 
     batch: Batch
-    packed: torch.Tensor      # int64 (rcap,) holding the uint64 key, tag 0
-    mat: torch.Tensor         # (rcap, W) int64 row matrix
+    packed: torch.Tensor      # int64 (rcap,): the uint64 (u32) key, tag 0
+    mat: Optional[torch.Tensor]  # (rcap, W) int64 row matrix, or None
     key_kind: str             # "int" (exact) | "hash" (verify via key cols)
-    range_flag: torch.Tensor  # 0-d bool: an int key fell outside ±2^61
+    range_flag: torch.Tensor  # 0-d bool: an int key fell out of range
     build_on: tuple
-    plan: RowPlan
+    plan: Optional[RowPlan]
     seed: int
+    payv: Optional[torch.Tensor] = None   # int64 (rcap,) packed payload
+    pay_plan: object = None               # ops/bitpack.py DynPack
+    narrow: bool = False                  # keys are u32 values
+
+
+def _sort_image(packed: torch.Tensor, narrow: bool) -> torch.Tensor:
+    """A key whose signed order is the unsigned order of `packed`: u32
+    values as int32 (value - 2^31), 64-bit ones as int64 ^ SIGN."""
+    if narrow:
+        return (packed - (1 << 31)).to(torch.int32)
+    return unsigned_order(packed)
+
+
+def _from_image(img: torch.Tensor, narrow: bool) -> torch.Tensor:
+    if narrow:
+        return img.to(torch.int64) + (1 << 31)
+    return unsigned_order(img)
 
 
 def _int_key_col(batch: Batch, on: Sequence[str]) -> Optional[Column]:
@@ -78,11 +109,15 @@ def _key_live(batch: Batch, on: Sequence[str]) -> torch.Tensor:
 
 
 def _pack_keys(batch: Batch, on: Sequence[str], tag: int, seed: int,
-               kind: str):
+               kind: str, narrow: bool = False):
     """-> (packed keys as int64 uint64 bits, range_flag). Sentinel lanes
     (dead/NULL key) get per-lane keys in the top region: a dead probe lane
     can only pair with the same-index dead build lane, and the key-liveness
-    guard kills that match downstream."""
+    guard kills that match downstream.
+
+    `narrow` (the carry): u32 values, for keys in [0, 2^30); a live key
+    outside raises range_flag, and the restart ladder reverts to the
+    64-bit row-matrix path."""
     cap = batch.capacity
     dev = batch.device
     live = _key_live(batch, on)
@@ -96,6 +131,13 @@ def _pack_keys(batch: Batch, on: Sequence[str], tag: int, seed: int,
             v = torch.zeros(cap, dtype=torch.int64, device=dev)
         else:
             v = kc.values.to(torch.int64)
+        if narrow:
+            in_range = (v >= 0) & (v < (1 << 30))
+            range_flag = torch.any(live & ~in_range)
+            packed = (v.clamp(0, (1 << 30) - 1) << 1) | tag
+            lane = torch.arange(cap, dtype=torch.int64, device=dev)
+            sentinel = (1 << 31) | (lane << 1) | tag
+            return torch.where(live, packed, sentinel), range_flag
         in_range = (v >= -_BIAS) & (v < _BIAS)
         range_flag = torch.any(live & ~in_range)
         packed = ((v + _BIAS) << 1) | tag
@@ -111,9 +153,24 @@ def _pack_keys(batch: Batch, on: Sequence[str], tag: int, seed: int,
 
 
 def prepare_unique(build: Batch, build_on: Sequence[str],
-                   seed: int = 0) -> UniqueBuild:
-    """The row-matrix unique build (the JAX package's carry=False)."""
+                   seed: int = 0, carry: bool = True) -> UniqueBuild:
+    """The unique build: with `carry`, an integer-keyed build whose
+    non-key columns bit-pack carries them as one payload (the key
+    columns are rebuilt from the probe key on a match); else, or when
+    they do not pack, the row matrix."""
+    from cockroach_tpu_torch.ops import bitpack
+
     kind = "int" if _int_key_col(build, build_on) is not None else "hash"
+    noncore = [n for n in build.columns if n not in build_on]
+    if carry and kind == "int" and bitpack.packable(build, noncore):
+        pay_plan = bitpack.plan_pack(build, noncore)
+        payv = bitpack.pack_lanes(build, pay_plan)
+        narrow = build.capacity < (1 << 29)
+        packed, range_flag = _pack_keys(build, build_on, 0, seed, kind,
+                                        narrow=narrow)
+        return UniqueBuild(build, packed, None, kind, range_flag,
+                           tuple(build_on), None, seed, payv, pay_plan,
+                           narrow)
     packed, range_flag = _pack_keys(build, build_on, 0, seed, kind)
     mat, plan = pack_rows(build)
     return UniqueBuild(build, packed, mat, kind, range_flag,
@@ -132,16 +189,137 @@ def _run_build_broadcast(newrun, is_build, perm):
     return low > 0, low - 1
 
 
+def _broadcast_cummax(s_val, newrun, is_build):
+    """(has_b, bpay) per sorted lane: the JAX package's broadcast of each
+    run's build payload, two cummaxes over its 31-bit halves; runid rides
+    the high 32 bits, so a later run always dominates. In a run with
+    several build lanes (a duplicate key, flagged) each lane gets the
+    halves' running maxima."""
+    runid = torch.cumsum(newrun, 0, dtype=torch.int64)
+    M31, M32 = 0x7FFFFFFF, 0xFFFFFFFF
+    lo31 = s_val & M31
+    hi31 = srl(s_val, 31)
+    m1 = torch.cummax((runid << 32) | torch.where(is_build, lo31 + 1, 0),
+                      0).values
+    m2 = torch.cummax((runid << 32) | torch.where(is_build, hi31, 0),
+                      0).values
+    low1 = m1 & M32
+    return low1 > 0, ((low1 - 1) & M31) | ((m2 & M32) << 31)
+
+
+def _broadcast_heads(s_val, newrun, is_build):
+    """(has_b, bpay) per sorted lane without a cummax: the build lane, if
+    any, leads its run, so each lane reads its run head, found by one
+    cumsum (the run id), one scatter of the heads' positions and a
+    gather. Equal to _broadcast_cummax bit for bit in every run with at
+    most one build lane (the 31-bit halves rejoin to the payload itself,
+    and a run with no build lane gets M31); in a run with a duplicate
+    build key, which raises the fallback flag, each lane gets the head's
+    payload."""
+    n = s_val.shape[0]
+    runid = torch.cumsum(newrun, 0, dtype=torch.int32) - 1
+    pos = torch.arange(n, dtype=torch.int32, device=s_val.device)
+    heads = torch.zeros(n + 1, dtype=torch.int32, device=s_val.device)
+    heads.scatter_(0, torch.where(newrun, runid, n).long(), pos)
+    head = heads[runid.long()].long()
+    has_b = is_build[head]
+    return has_b, torch.where(has_b, s_val[head], 0x7FFFFFFF)
+
+
+def _probe_carry(probe: Batch, ub: UniqueBuild, probe_on: Sequence[str],
+                 how: str, p_packed: torch.Tensor, p_range: torch.Tensor,
+                 broadcast=_broadcast_heads):
+    """Payload-carry probe: the build columns ride the sort as one
+    bit-packed 64-bit value; no row-matrix gather. For integer-keyed
+    unique builds, inner/left/semi/anti, without matched-build tracking.
+    `broadcast` spreads each run's build payload to its lanes:
+    _broadcast_heads, or the JAX package's two cummaxes
+    (_broadcast_cummax), which give the same output wherever the
+    fallback flag is clear."""
+    from cockroach_tpu_torch.ops import bitpack
+    from cockroach_tpu_torch.ops.join import JoinResult
+
+    build = ub.batch
+    dev = probe.device
+    lcap, rcap = probe.capacity, build.capacity
+    n = lcap + rcap
+    packed = torch.cat([ub.packed, p_packed])
+    # build lanes carry the packed payload, probe lanes their own lane
+    # index (the destination of their result)
+    val = torch.cat([ub.payv, torch.arange(lcap, dtype=torch.int64,
+                                           device=dev)])
+    s_img, perm = torch.sort(_sort_image(packed, ub.narrow), stable=True)
+    s_packed = _from_image(s_img, ub.narrow)
+    s_val = val[perm]
+
+    pos = torch.arange(n, device=dev)
+    prev_packed = torch.cat([s_packed[:1], s_packed[:-1]])
+    same_key = (s_packed >> 1) == (prev_packed >> 1)
+    newrun = (pos == 0) | ~same_key
+    is_build = (s_packed & 1) == 0
+    dup = torch.any(is_build & ~newrun)
+    pay_wide = ub.pay_plan.total_bits > 62
+    fallback = dup | ub.range_flag | p_range | pay_wide
+
+    has_b, bpay = broadcast(s_val, newrun, is_build)
+    match_sorted = ~is_build & has_b
+
+    # each probe lane's (payload << 1 | match) back to its probe position;
+    # build lanes land in the drop slot lcap
+    dest = torch.where(is_build, lcap, s_val)
+    res = (bpay << 1) | match_sorted.to(torch.int64)
+    o_res = torch.zeros(lcap + 1, dtype=torch.int64, device=dev)
+    o_res[dest] = res
+    o_res = o_res[:lcap]
+    o_match = (o_res & 1) != 0
+    o_bpay = srl(o_res, 1)
+
+    match = o_match & _key_live(probe, probe_on)
+    if how == "semi":
+        return JoinResult(probe.with_sel(probe.sel & match), fallback, None)
+    if how == "anti":
+        return JoinResult(probe.with_sel(probe.sel & ~match), fallback, None)
+    bcols = bitpack.unpack_lanes(o_bpay, ub.pay_plan, build, valid_and=match)
+    for pn, bn in zip(probe_on, ub.build_on):
+        # the build key equals the probe key on every matched lane
+        bdt = build.col(bn).values.dtype
+        v = torch.where(match, probe.col(pn).values.to(bdt),
+                        torch.zeros((), dtype=bdt, device=dev))
+        bcols[bn] = Column(v, match)
+    cols = dict(probe.columns)
+    cols.update(bcols)
+    sel = probe.sel if how == "left" else (probe.sel & match)
+    return JoinResult(Batch(cols, sel, sel.sum(dtype=torch.int32)),
+                      fallback, None)
+
+
 def probe_unique(probe: Batch, ub: UniqueBuild, probe_on: Sequence[str],
                  how: str = "inner", track_build: bool = False):
     """Join `probe` against a prepared unique build. Returns a JoinResult
     (ops/join.py) whose batch capacity == probe.capacity (right/outer:
     probe + build capacity). The overflow flag is the fallback signal
-    (duplicate build keys, hash collision, int key out of range)."""
+    (duplicate build keys, hash collision, int key out of range, a carry
+    payload over 62 bits)."""
     from cockroach_tpu_torch.ops.join import JoinResult, _scatter_flags
 
     build = ub.batch
     dev = probe.device
+    if (ub.pay_plan is not None
+            and how in ("inner", "left", "semi", "anti")
+            and not track_build
+            and probe.capacity + build.capacity < (1 << 30)):
+        p_packed, p_range = _pack_keys(probe, probe_on, 1, ub.seed,
+                                       ub.key_kind, narrow=ub.narrow)
+        return _probe_carry(probe, ub, probe_on, how, p_packed, p_range)
+    if ub.mat is None:
+        # a carry-prepared build on a path that needs the row matrix
+        # (matched-build tracking, right/outer): build it here, with the
+        # 64-bit keys this path sorts
+        mat, plan = pack_rows(build)
+        packed64, rflag = _pack_keys(build, ub.build_on, 0, ub.seed,
+                                     ub.key_kind)
+        ub = ub._replace(mat=mat, plan=plan, packed=packed64,
+                         range_flag=rflag, narrow=False)
     lcap, rcap = probe.capacity, build.capacity
     n = lcap + rcap
     p_packed, p_range = _pack_keys(probe, probe_on, 1, ub.seed, ub.key_kind)

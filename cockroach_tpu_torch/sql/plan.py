@@ -597,9 +597,15 @@ def _ordering_of(p: Plan) -> Tuple[str, ...]:
 
 def build(p: Plan, catalog: Catalog, capacity: int = 1 << 17,
           _normalized: bool = False) -> Operator:
-    """Logical plan -> exec/ operator tree."""
+    """Logical plan -> exec/ operator tree. With `sql.tpu.invariants` on
+    (test builds) a CheckedOp (exec/invariants.py) wraps every operator,
+    as the JAX package's build does."""
     if not _normalized:
         p = normalize(p, catalog)
+
+    from cockroach_tpu_torch.exec.invariants import CheckedOp, enabled
+
+    checking = enabled()
 
     # common-subplan elimination: VALUE-equal plan nodes build ONE
     # operator (Q18 scans lineitem twice through identical Scan nodes).
@@ -615,6 +621,10 @@ def build(p: Plan, catalog: Catalog, capacity: int = 1 << 17,
         if hit is not None:
             return hit
         op = _rec(node)
+        # test builds insert an invariants checker above every operator
+        # (colexec/invariants_checker.go)
+        if checking:
+            op = CheckedOp(op)
         try:
             memo[node] = op
         except TypeError:

@@ -175,7 +175,7 @@ def main() -> int:
                     j._try_stacked_build = lambda device: None
                 try:
                     t = time.perf_counter()
-                    b = j._materialize_build(dev)
+                    b = j._materialize_build(dev)[1]
                     torch.cuda.synchronize()
                     return time.perf_counter() - t, b
                 finally:

@@ -336,18 +336,26 @@ def test_dense_aggregate_nullable_string_keys_matches_jax(jax_pallas):
 
 
 def test_unported_aggregations_raise():
-    """range_dense_aggregate is the one aggregation left unported; the
-    sort-based ones now run, and over dense keys they find the groups
-    the dense route finds (tests/test_torch_hash_agg.py holds them
-    against the JAX package)."""
+    """Every aggregation is ported now: range_dense_aggregate over the
+    same batch equals the JAX function lane for lane (every aggregate
+    its route takes), and it, the sort-based ones and the dense route
+    find the same groups (tests/test_torch_hash_agg.py holds the
+    sort-based ones against the JAX package)."""
     from cockroach_tpu_torch.ops.sort import SortKey, sort_batch
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tagg.range_dense_aggregate()
     rng = np.random.default_rng(15)
     jb = _random_batch(rng)
     tb = port_batch(jb)
+    want, wflag = jagg.range_dense_aggregate(jb, "k", 0, 4, _aggs(jagg))
+    got, gflag = tagg.range_dense_aggregate(tb, "k", 0, 4, _aggs(tagg))
+    assert not bool(wflag) and not bool(gflag)
+    assert_same_batch(want, got)
     dense = tagg.dense_aggregate(tb, ("k",), _aggs(tagg), (4,)).compact()
+    n = int(dense.length)
+    for a in _aggs(tagg):
+        np.testing.assert_array_equal(
+            got.compact().col(a.out).values.numpy()[:n],
+            dense.col(a.out).values.numpy()[:n], err_msg=a.out)
     for got in (tagg.hash_aggregate(tb, ["k"], _aggs(tagg), method="lex"),
                 tagg.ordered_aggregate(
                     sort_batch(tb, [SortKey("k")]), ["k"], _aggs(tagg))):

@@ -10,10 +10,11 @@ the CPU, where the fused program runs eagerly.
   fused tier, and its tracer takes the JAX tracer's routes (counted by
   wrapping `_Tracer._try_groupjoin` and `_try_int_agg` on both sides:
   the group join in Q3 and Q18, the int-key GROUP BY in Q15, Q17 and
-  Q18). Its restarts equal the JAX runner's, except that the port's
-  JoinOp starts at "unique-mat", where the JAX one starts at "unique"
-  and steps to "unique-mat" first: on Q4's semi join, whose build keys
-  repeat, the JAX runner restarts once more.
+  Q18), and builds the JAX tracer's payload-carry joins (counted by
+  wrapping ops/sortjoin.py prepare_unique on both sides). Its restarts
+  equal the JAX runner's: both JoinOps start at "unique" (Q4's semi
+  join, whose build keys repeat, steps down to "unique-mat" and then to
+  "expand").
 - At capacity 2^12 lineitem spans 15 chunks, not a power of two: the
   port's tracer reckons the capacities of the JAX tracer's batches,
   whose image pads to 16 chunks, while its own batches hold only the 15
@@ -43,6 +44,7 @@ from cockroach_tpu.exec import fused as jfused
 from cockroach_tpu.exec import operators as jops
 from cockroach_tpu.exec import stats as jstats
 from cockroach_tpu.ops import expr as jx
+from cockroach_tpu.ops import sortjoin as jsortjoin
 from cockroach_tpu.ops.agg import AggSpec as JAggSpec
 from cockroach_tpu.ops.sort import SortKey as JSortKey
 from cockroach_tpu.util import circuit as jcircuit
@@ -56,6 +58,7 @@ from cockroach_tpu_torch.exec import collect as tcollect
 from cockroach_tpu_torch.exec import fused as tfused
 from cockroach_tpu_torch.exec import operators as tops
 from cockroach_tpu_torch.exec import stats
+from cockroach_tpu_torch.ops import sortjoin as tsortjoin
 from cockroach_tpu_torch.ops.agg import AggSpec
 from cockroach_tpu_torch.ops.sort import SortKey
 from cockroach_tpu_torch.util import circuit as tcircuit
@@ -71,9 +74,6 @@ CAPACITY = 1 << 13
 Q18_THRESHOLD = 150
 QUERIES = ("q1", "q2", "q3", "q4", "q5", "q6", "q9", "q10", "q12", "q14",
            "q15", "q16", "q17", "q18", "q19")
-# the JAX runner's extra restarts: its JoinOp's "unique" rung, which the
-# port's JoinOp skips (Q4's semi join builds on repeating l_orderkeys)
-EXTRA_JAX_RESTARTS = {"q4": 1}
 LEFT_FUSED = ("fused.fallback_", "resilience.")
 
 
@@ -97,12 +97,24 @@ class _Recorder:
     """Counts the routes each package's tracer takes, and the capacity of
     every batch it materializes, by wrapping its _Tracer methods: `caps`
     the capacity as the JAX tracer reckons it (the port's tracer adds the
-    padding lanes it reckons), `real` the batch's own."""
+    padding lanes it reckons), `real` the batch's own. `routes["carry"]`
+    counts the unique builds that took the payload carry (wrapping the
+    package's ops/sortjoin.py prepare_unique)."""
 
     def __init__(self, mp, mod):
         self.routes = collections.Counter()
         self.caps = []
         self.real = []
+        sortjoin = jsortjoin if mod is jfused else tsortjoin
+        orig_prepare = sortjoin.prepare_unique
+
+        def prepare(*args, **kwargs):
+            ub = orig_prepare(*args, **kwargs)
+            if ub.payv is not None:
+                self.routes["carry"] += 1
+            return ub
+
+        mp.setattr(sortjoin, "prepare_unique", prepare)
         for name in ("_try_groupjoin", "_try_int_agg"):
             orig = getattr(mod._Tracer, name)
 
@@ -196,7 +208,15 @@ def test_fused_routes_match_jax(results, name):
 def test_fused_restarts_match_jax(results, name):
     _w, _g, _jr, _tr, j_restarts, tcol, *_ = results[name]
     t_restarts = _events(tcol, "flow.restart")
-    assert t_restarts + EXTRA_JAX_RESTARTS.get(name, 0) == j_restarts
+    assert t_restarts == j_restarts
+
+
+@pytest.mark.parametrize("name", QUERIES)
+def test_fused_carry_joins_match_jax(results, name):
+    """The payload-carry joins the port's tracer builds are the JAX
+    tracer's, query by query."""
+    _want, _got, jroutes, troutes, *_ = results[name]
+    assert troutes.get("carry", 0) == jroutes.get("carry", 0)
 
 
 @pytest.mark.parametrize("name", ["q3", "q18"])

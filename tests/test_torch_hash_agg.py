@@ -396,8 +396,27 @@ def test_forced_hash_collision_flag_matches_jax(monkeypatch):
 
 
 def test_range_dense_aggregate_still_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tagg.range_dense_aggregate()
+    """range_dense_aggregate is ported: over _specs' batch (NULL values,
+    dead lanes) it equals the JAX function lane for lane, flag
+    included, for a range that holds every key and one that does not."""
+    rng = np.random.default_rng(17)
+    n = 300
+    cols = {"k1": (rng.integers(-3, 40, n).astype(np.int64), None),
+            "v": (rng.integers(-10**6, 10**6, n).astype(np.int64),
+                  rng.random(n) > 0.2),
+            "i": (rng.integers(-99, 99, n).astype(np.int32), None)}
+    jb = jax_batch(cols, rng.random(n) > 0.15)
+    specs = [("sum", "v", "s"), ("count", "v", "c"),
+             ("count_star", None, "n"), ("min", "i", "mn"),
+             ("max", "v", "mx"), ("sum_hi32", "v", "h"),
+             ("sum_lo32", "v", "l"), ("sum", "i", "si")]
+    for lo, span, flag in ((-3, 43, False), (0, 20, True)):
+        want, wf = jagg.range_dense_aggregate(
+            jb, "k1", lo, span, [jagg.AggSpec(*a) for a in specs])
+        got, gf = tagg.range_dense_aggregate(
+            port_batch(jb), "k1", lo, span, [tagg.AggSpec(*a) for a in specs])
+        assert bool(wf) == bool(gf) == flag
+        assert_same_batch(want, got, f"range [{lo}, {lo + span})")
 
 
 # ------------------------------------------------------------------ top-K

@@ -17,9 +17,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the modules of the sort-based GROUP BY, the joins, top-K, the
 # expressions, DISTINCT, the planner (its statistics and
 # decorrelation), the resident scan (memory accounting, the stopper
-# of the prefetch threads, the scan-image cache), and the fused runner
+# of the prefetch threads, the scan-image cache), the fused runner
 # (the group join, the bit-packing, the retry classifier and the
-# breakers of the degradation ladder): imported by name, so a module
+# breakers of the degradation ladder), and the out-of-core paths and
+# the invariants checker: imported by name, so a module
 # that goes missing fails here rather than being skipped by the package
 # walk
 SLICE_MODULES = ["ops.hash", "ops.prefix", "ops.search", "ops.rowmat",
@@ -29,7 +30,7 @@ SLICE_MODULES = ["ops.hash", "ops.prefix", "ops.search", "ops.rowmat",
                  "util.mon", "util.stop", "exec.scan_cache",
                  "coldata.arrow", "util.settings", "ops.bitpack",
                  "ops.groupjoin", "exec.fused", "util.retry",
-                 "util.circuit"]
+                 "util.circuit", "exec.spill", "exec.invariants"]
 
 
 def test_port_imports_no_jax_pyarrow_or_jax_package():
@@ -56,7 +57,7 @@ def test_port_imports_no_jax_pyarrow_or_jax_package():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
     n_modules = int(r.stdout.split()[0])
-    assert n_modules >= 31, r.stdout
+    assert n_modules >= 33, r.stdout
 
 
 def test_collect_without_cuda_or_device_raises(monkeypatch):

@@ -2,14 +2,17 @@
 values, validity, selection and row order of the output batch, the
 deferred overflow/fallback flag and the matched-build flags.
 
-Both build modes are held against JAX for the six join types: the unique
-sort join (ops/sortjoin.py probe_unique, the JAX package's row-matrix
-path) and the general expand path (ops/join.py _probe_sorted). The inputs
+The three build modes are held against JAX for the six join types: the
+unique sort join with the payload carry ("unique", whose tracking probes
+build the row matrix lazily) and with the row matrix ("unique-mat"),
+ops/sortjoin.py probe_unique, and the general expand path (ops/join.py
+_probe_sorted). The inputs
 carry NULL keys and dead lanes on both sides, a duplicate live build key
 (the unique path's fallback flag), an int key outside ±2^61 (its
 range_flag), a float key and a two-column key (the hash-keyed kind). The
-streaming JoinOp's restart ladder (unique-mat -> expand -> doubled
-expansion) is held against the JAX JoinOp through both collects."""
+streaming JoinOp's restart ladder (unique -> unique-mat -> expand ->
+doubled expansion) is held against the JAX JoinOp through both
+collects."""
 
 import numpy as np
 import pytest
@@ -112,7 +115,7 @@ CASES = ("plain", "duplicate", "range", "float", "two_keys")
 
 
 @pytest.mark.parametrize("case", CASES)
-@pytest.mark.parametrize("mode", ["unique-mat", "expand"])
+@pytest.mark.parametrize("mode", ["unique", "unique-mat", "expand"])
 def test_join_matches_jax(mode, case):
     jl, jr, (lon, ron) = _sides(case)
     tl, tr = port_batch(jl), port_batch(jr)
@@ -162,13 +165,28 @@ def test_prepared_builds_match_jax():
 
 
 def test_effective_build_mode_and_unported_carry():
+    """The static downgrade of both unique modes, and the payload-carry
+    build ("unique"), now ported: its narrow keys, packed payload and
+    range flag equal the JAX package's, and a probe through it equals
+    the JAX probe."""
     names = [f"c{i}" for i in range(40)]
-    assert tjoin.effective_build_mode("unique-mat", names, ["c0"]) == "expand"
-    assert tjoin.effective_build_mode("unique-mat", names[:5], ["c0"]) == \
-        "unique-mat"
-    _jl, jr, (_lon, ron) = _sides("plain")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tjoin.prepare_build(port_batch(jr), ron, mode="unique")
+    for mode in ("unique", "unique-mat"):
+        assert tjoin.effective_build_mode(mode, names, ["c0"]) == "expand"
+        assert tjoin.effective_build_mode(mode, names[:5], ["c0"]) == mode
+    jl, jr, (lon, ron) = _sides("plain")
+    ub = tjoin.prepare_build(port_batch(jr), ron, mode="unique")
+    want = jjoin.prepare_build(jr, ron, mode="unique")
+    assert ub.mat is None and want.mat is None and ub.narrow
+    np.testing.assert_array_equal(ub.packed.numpy(),
+                                  np.asarray(want.packed).astype(np.int64))
+    np.testing.assert_array_equal(ub.payv.numpy(),
+                                  np.asarray(want.payv).view(np.int64))
+    assert bool(ub.range_flag) == bool(want.range_flag) is False
+    for how in ("inner", "left", "semi", "anti"):
+        got = tjoin.hash_join_prepared(port_batch(jl), ub, lon, ron, how=how)
+        exp = jjoin.hash_join_prepared(jl, want, lon, ron, how=how)
+        assert bool(got.overflow) == bool(exp.overflow) is False
+        assert_same_batch(exp.batch, got.batch, how)
 
 
 def _scan_pair(cols, capacity):
@@ -207,8 +225,8 @@ def test_streaming_join_restart_ladder_matches_jax(how):
         np.testing.assert_array_equal(got[name], want[name], err_msg=name)
     assert top.build_mode == jop.build_mode == "expand"
     assert top.expansion == jop.expansion
-    # one restart into expand, then one per doubling of the expansion
-    # (the port starts at unique-mat, one rung below the JAX JoinOp's
-    # unique, which its streaming path runs as unique-mat anyway)
+    # two restarts into expand (unique -> unique-mat -> expand: the
+    # streaming path runs unique as unique-mat, as the JAX JoinOp's
+    # does), then one per doubling of the expansion
     doublings = top.expansion.bit_length() - 1
-    assert col.stages["flow.restart"].events == 1 + doublings
+    assert col.stages["flow.restart"].events == 2 + doublings

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from cockroach_tpu.exec import collect as jcollect
+from cockroach_tpu.exec import operators as jops
 from cockroach_tpu.workload import tpch as jtpch
 from cockroach_tpu.workload import tpch_queries as jq
 from cockroach_tpu_torch.exec import collect as tcollect
@@ -198,21 +199,34 @@ def test_q6_is_a_scalar_aggregate():
 
 
 def test_past_workmem_raises_naming_roadmap(gens):
-    """The grace (out-of-core) paths are not ported: past workmem the
-    aggregate and the join raise, naming the ROADMAP item."""
-    tgen = gens[1]
-    flow = tq.q18(tgen, Q18_THRESHOLD, CAPACITY)
-    for op in walk_operators(flow):
-        if isinstance(op, HashAggOp) and op.group_by == ["l_orderkey"]:
-            op.workmem = 1 << 10
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcollect(flow, device="cpu", fuse=False)
-    flow = tq.q3(tgen, CAPACITY)
-    for op in walk_operators(flow):
-        if isinstance(op, JoinOp):
-            op.workmem = 1 << 10
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcollect(flow, device="cpu", fuse=False)
+    """The grace (out-of-core) paths are ported: past workmem Q18's first
+    aggregate (at 1 KiB) takes the grace GROUP BY and Q3's joins (at 16
+    KiB, where the JAX package's grace join partitions once instead of
+    recursing to its deepest level) the grace join; both complete and
+    equal the JAX package's results under the same budgets, row order
+    included, and release every spilled byte."""
+    from cockroach_tpu_torch.exec.spill import host_spill_monitor
+
+    jgen, tgen = gens
+    cases = (("q18", HashAggOp, jops.HashAggOp, 1 << 10, "agg.grace_spill"),
+             ("q3", JoinOp, jops.JoinOp, 1 << 14, "join.grace_spill"))
+    for name, tcls, jcls, workmem, stage in cases:
+        flows = []
+        for mod, gen, cls, walk in ((jq, jgen, jcls, jops.walk_operators),
+                                    (tq, tgen, tcls, walk_operators)):
+            flow = (mod.q18(gen, Q18_THRESHOLD, CAPACITY) if name == "q18"
+                    else mod.q3(gen, CAPACITY))
+            for op in walk(flow):
+                if isinstance(op, cls) and (
+                        name == "q3" or op.group_by == ["l_orderkey"]):
+                    op.workmem = workmem
+            flows.append(flow)
+        want = jcollect(flows[0], fuse=False)
+        with stats.query_stats() as col:
+            got = tcollect(flows[1], device="cpu", fuse=False)
+        assert col.stages[stage].events >= 1, name
+        _assert_equal_results(want, got)
+        assert host_spill_monitor().used == 0
 
 
 def test_empty_scalar_aggregate_emits_one_row(gens):

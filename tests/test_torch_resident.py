@@ -422,9 +422,14 @@ def test_stacked_build_matches_chunked_and_jax(capacity, chunks):
     assert len(build_scan.stacked_image(CPU).ms_host) == chunks
     stacked = int(chunks > 1)
     chunked_flow, chunked_join = _join_flows(tops, False, capacity)
-    want_build = _batch_arrays(chunked_join._materialize_build(CPU))
+    # _materialize_build gives ("mem", the build batch) within workmem
+    kind, built = chunked_join._materialize_build(CPU)
+    assert kind == "mem"
+    want_build = _batch_arrays(built)
     with stats.query_stats() as col:
-        got_build = _batch_arrays(tjoin._materialize_build(CPU))
+        kind, built = tjoin._materialize_build(CPU)
+    assert kind == "mem"
+    got_build = _batch_arrays(built)
     assert _stage(col, "join.build_stacked") == stacked
     assert want_build.keys() == got_build.keys()
     for k in want_build:
@@ -450,15 +455,29 @@ def test_stacked_build_matches_chunked_and_jax(capacity, chunks):
 
 
 def test_stacked_build_declines_past_workmem():
-    """A build that could pass workmem takes the chunked path, which
-    raises: the grace join is not ported."""
+    """A build that could pass workmem declines the stacked build and
+    streams into the grace join, which completes: its rows equal the JAX
+    package's in-memory join of the same flow as a multiset (the grace
+    join emits partition by partition)."""
+    from cockroach_tpu_torch.exec.spill import host_spill_monitor
+
     tflow, tjoin = _join_flows(tops, True)
     tcollect(tflow, device="cpu", fuse=False)
     tjoin.workmem = 1000
-    with stats.query_stats() as col, pytest.raises(
-            NotImplementedError, match="grace"):
-        tcollect(tflow, device="cpu", fuse=False)
+    with stats.query_stats() as col:
+        got = tcollect(tflow, device="cpu", fuse=False)
     assert _stage(col, "join.build_stacked") == 0
+    assert _stage(col, "join.grace_spill") >= 1
+    assert host_spill_monitor().used == 0
+    jflow, _ = _join_flows(jops, False)
+    want = jcollect(jflow, fuse=False)
+    names = list(want)
+    assert sorted(names) == sorted(got)
+
+    def rows(res):
+        return sorted(zip(*(np.asarray(res[n]).tolist() for n in names)))
+
+    assert rows(got) == rows(want)
 
 
 # ------------------------------------------------------ make_flat_unpack
