@@ -3,9 +3,9 @@ operators over device batches, driven by the host."""
 
 from cockroach_tpu_torch.exec.operators import (
     DistinctOp, FlowRestart, HashAggOp, JoinOp, LimitOp, MapOp, Operator,
-    OrderedAggOp, ScanOp, SortOp, TopKOp, collect,
+    OrderedAggOp, ScanOp, SortOp, TopKOp, WindowOp, collect,
 )
 
 __all__ = ["Operator", "ScanOp", "MapOp", "HashAggOp", "OrderedAggOp",
            "JoinOp", "DistinctOp", "SortOp", "TopKOp", "LimitOp",
-           "FlowRestart", "collect"]
+           "WindowOp", "FlowRestart", "collect"]

@@ -14,7 +14,8 @@ buffer, with no other host work and one synchronizing call.
 Supported tree grammar (anything else -> the streaming operators):
 
     Root  := Post* (Fold | Mat)
-    Post  := SortOp | LimitOp | MapOp | TopKOp          (over a single batch)
+    Post  := SortOp | LimitOp | MapOp | TopKOp | WindowOp (over a single
+                                                           batch)
     Fold  := HashAggOp|TopKOp over a Chain              (loop over chunks)
     Chain := MapOp* (JoinOp[inner/left/semi/anti](probe=Chain, build=Mat))*
              ScanOp
@@ -43,11 +44,17 @@ carry deferred flags, packed with the result and read once after the
 run; a raised flag raises FlowRestart, and run_flow widens the operator
 and reruns, under a new config key (a new capture on CUDA).
 
-Not ported yet: `compile_via_vault` and `aot_compile` (the plan vault),
-the serving runners (ROADMAP.md queue 1, item 8) and WindowOp (item 5);
-none of them exists in the port, so `_validate` refuses any operator it
-does not know, the invariants checker (exec/invariants.py CheckedOp) and
-a grace level's sub-join among them, as the JAX tracer does.
+A WindowOp materializes its sorted input and runs the window body
+(ops/window.py) over it, inside the graph: the string rank tables it
+reads come from the sort's cache, filled by the eager warm-up and held by
+the graph.
+
+Not ported yet: `compile_via_vault` and `aot_compile` (the plan vault)
+and the serving runners (ROADMAP.md queue 1, item 8); neither exists in
+the port, so `_validate` refuses any operator it does not know, the
+invariants checker (exec/invariants.py CheckedOp), the row engine
+(exec/rowexec.py RowMapOp) and a grace level's sub-join among them, as
+the JAX tracer does.
 """
 
 from __future__ import annotations
@@ -65,8 +72,8 @@ from cockroach_tpu_torch.coldata.batch import Batch, Column, concat_batches
 from cockroach_tpu_torch.exec import stats
 from cockroach_tpu_torch.exec.operators import (
     DistinctOp, FlowRestart, HashAggOp, JoinOp, LimitOp, MapOp, Operator,
-    ScanImage, ScanOp, ShrinkOp, SortOp, TopKOp, _fold_step, _grow_to,
-    _pow2_at_least, child_operators, walk_operators,
+    ScanImage, ScanOp, ShrinkOp, SortOp, TopKOp, WindowOp, _fold_step,
+    _grow_to, _pow2_at_least, child_operators, walk_operators,
 )
 from cockroach_tpu_torch.exec.spill import estimate_row_bytes
 from cockroach_tpu_torch.ops.agg import (
@@ -107,6 +114,11 @@ def _validate(op: Operator) -> None:
     if isinstance(op, (MapOp, HashAggOp, SortOp, TopKOp, LimitOp,
                        ShrinkOp)):
         _validate(op.child)
+        return
+    if isinstance(op, WindowOp):
+        # lowers through its internal sort and the window functions of
+        # ops/window.py
+        _validate(op._sorted)
         return
     raise Unsupported(f"operator {type(op).__name__}")
 
@@ -337,6 +349,12 @@ class _Tracer:
                 self.flags.extend(fl)
                 return acc
             return top_k_batch(self._mat(op.child), keys, k, schema)
+        if isinstance(op, WindowOp):
+            # materialize the (partition, order)-sorted input and compute
+            # every window column with the body WindowOp.batches runs
+            m = self._mat(op._sorted)
+            self._inherit(op, op._sorted)
+            return op._run([m])
         if isinstance(op, LimitOp):
             m = self._mat(op.child)
             self._inherit(op, op.child)

@@ -1,16 +1,17 @@
 """Streaming operator tree over device batches.
 
 Counterpart of cockroach_tpu/exec/operators.py, for the operators on the
-paths of the fifteen TPC-H queries: ScanOp -> MapOp (filter,
-projection) -> HashAggOp (the dense route, the range-dense route, the
-sort route with its scalar case, and the grace GROUP BY), OrderedAggOp,
-JoinOp (with the grace join), ShrinkOp, DistinctOp, SortOp (in memory or
-external), TopKOp and LimitOp. An operator yields Batches on the device
-that `collect` names. `run_flow` drives a flow down the degradation
-ladder: the fused whole-query program of exec/fused.py (one CUDA graph
-per query on a card) when the tree fits its grammar, then these
-streaming operators, then the same operators with every workmem clamped
-to the spill rung's budget.
+paths of the fifteen TPC-H queries and the SQL front end: ScanOp ->
+MapOp (filter, projection) -> HashAggOp (the dense route, the
+range-dense route, the sort route with its scalar case, and the grace
+GROUP BY), OrderedAggOp, JoinOp (with the grace join), ShrinkOp,
+DistinctOp, SortOp (in memory or external), WindowOp, TopKOp and
+LimitOp (the row engine's RowMapOp is in exec/rowexec.py). An operator
+yields Batches on the device that `collect` names. `run_flow` drives a
+flow down the degradation ladder: the fused whole-query program of
+exec/fused.py (one CUDA graph per query on a card) when the tree fits
+its grammar, then these streaming operators, then the same operators
+with every workmem clamped to the spill rung's budget.
 
 No operator reads a device value back to the host inside its batch loop.
 A deferred capacity or correctness check (aggregate overflow, hash
@@ -1339,6 +1340,45 @@ def _merge_sorted_runs(runs) -> np.ndarray:
     return merged[0][1]
 
 
+class WindowOp(Operator):
+    """Window functions over (PARTITION BY, ORDER BY) — the
+    colexecwindow analog. Sorts the input by the partition and order keys
+    through a SortOp (so the external sort serves it too), then computes
+    every window column with ops/window.py over the concatenated,
+    compacted sorted result. Output is sorted by (partition, order) — a
+    stronger guarantee than SQL requires."""
+
+    def __init__(self, child: Operator, partition_by: Sequence[str],
+                 order_by: Sequence[SortKey], specs):
+        self.child = child
+        self.partition_by = list(partition_by)
+        self.order_by = list(order_by)
+        self.specs = list(specs)
+        sort_keys = ([SortKey(c) for c in self.partition_by]
+                     + self.order_by)
+        self._sorted = SortOp(child, sort_keys) if sort_keys else child
+        self.schema = child.schema.extend(
+            [Field(s.out, s.out_type(child.schema)) for s in self.specs])
+
+    def _run(self, parts: List[Batch]) -> Batch:
+        """The window columns over the sorted batches (the fused tracer
+        runs this body over its materialized sorted input)."""
+        from cockroach_tpu_torch.ops.window import compute_windows
+
+        whole = (parts[0] if len(parts) == 1
+                 else concat_batches(parts)).compact()
+        new_cols = compute_windows(whole, self.partition_by, self.order_by,
+                                   self.specs, self.child.schema)
+        cols = dict(whole.columns)
+        cols.update(mask_padding(new_cols, whole.sel))
+        return Batch(cols, whole.sel, whole.length)
+
+    def batches(self, device: torch.device) -> Iterator[Batch]:
+        parts = list(self._sorted.batches(device))
+        if parts:
+            yield self._run(parts)
+
+
 class TopKOp(Operator):
     """ORDER BY + LIMIT k: per-batch top-k, then the top-k of the
     winners."""
@@ -1636,15 +1676,31 @@ def assemble_wide_sums(result: Dict[str, np.ndarray]) -> None:
         result[base + "__valid"] = result[name + "__valid"]
 
 
-def collect(op: Operator, device=None,
-            fuse: bool = True) -> Dict[str, np.ndarray]:
+def flow_backend(setting: str = "auto") -> str:
+    """The backend a flow runs on: "cpu" (the host) when the setting asks
+    for it, else "gpu", the caller's device. The JAX package's `auto`
+    costs the flow and may place a small one on the host
+    (sql/cost.py route_backend); the port leaves that placement out, so
+    under `auto` a flow runs where the caller asked, and "gpu" is an alias
+    of "auto"."""
+    return "cpu" if setting == "cpu" else "gpu"
+
+
+def collect(op: Operator, device=None, fuse: bool = True,
+            backend: str = "auto") -> Dict[str, np.ndarray]:
     """Run the flow on `device` (CUDA unless the caller passes one; raises
     without CUDA) and return host numpy columns, compacted, each with a
-    `<col>__valid` sidecar. With `fuse` (the JAX package's default) the
-    flow runs as the fused whole-query program where its tree allows,
-    else through the streaming operators (run_flow's ladder). Wide-sum
-    column pairs are recombined into exact Python-int columns."""
-    dev = resolve_device(device)
+    `<col>__valid` sidecar. `backend` is the session's `vectorize`
+    (auto|gpu|cpu): "cpu" runs the flow on the host whatever `device`
+    says (flow_backend), counted as `route.cpu`; otherwise `route.gpu`.
+    With `fuse` (the JAX package's default) the flow runs as the fused
+    whole-query program where its tree allows, else through the
+    streaming operators (run_flow's ladder). Wide-sum column pairs are
+    recombined into exact Python-int columns."""
+    placed = flow_backend(backend)
+    stats.add(f"route.{placed}")
+    dev = (torch.device("cpu") if placed == "cpu"
+           else resolve_device(device))
     outs: Dict[str, List[np.ndarray]] = {}
     valids: Dict[str, List[np.ndarray]] = {}
 

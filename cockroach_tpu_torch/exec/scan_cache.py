@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import threading
 from collections import OrderedDict
-from typing import Any, Optional, Tuple
+from typing import Any, List, Optional, Tuple
 
 from cockroach_tpu_torch.exec import stats
 from cockroach_tpu_torch.util.settings import (
@@ -103,6 +103,18 @@ class ScanImageCache:
         if dead:
             stats.add("scan.cache_invalidate", events=len(dead))
         return len(dead)
+
+    def snapshot(self) -> List[Tuple[tuple, Any, int]]:
+        """Every entry as (key, value, nbytes), least recently used first:
+        what `restore` puts back after a `clear`."""
+        with self._mu:
+            return [(k, v, nb) for k, (v, nb) in self._entries.items()]
+
+    def restore(self, entries: List[Tuple[tuple, Any, int]]) -> None:
+        """Put back the entries of a `snapshot`, in its order, under the
+        budget (`put`'s rules)."""
+        for key, value, nbytes in entries:
+            self.put(key, value, nbytes)
 
     def clear(self) -> None:
         with self._mu:

@@ -35,6 +35,16 @@ device attribution trace a run with torch.profiler (chip_smoke.py
   resilience.retry.<name>
                   the degradation ladder's steps (exec/operators.py
                   run_flow) and in-place retries (util/retry.py)
+  route.gpu / route.cpu
+                  a collect on the caller's device / placed on the host
+                  (exec/operators.py flow_backend)
+  host.rowmap     the row engine's per-batch evaluation (exec/rowexec.py;
+                  rows: the rows it evaluated)
+  sql.prepared_hit
+                  a Session execute served from its prepared cache
+  sqlstats.fingerprints_evicted
+                  fingerprints the sqlstats LRU cap evicted (rows: how
+                  many)
 
 Zero overhead when disabled (module flag checked per call site).
 """
@@ -240,8 +250,8 @@ def operator_breakdown(col: Optional[StatsCollection]) -> list:
 
 def operator_device(col: Optional[StatsCollection]) -> Dict[str, float]:
     """Per-operator-family execution seconds (the measured-cost signal
-    sqlstats accumulates per fingerprint and the placement pass reads:
-    sql/cost.py measured_route)."""
+    sqlstats accumulates per fingerprint and EXPLAIN's tier table shows:
+    sql/plan_compile.py compile_plan)."""
     if col is None:
         return {}
     out: Dict[str, float] = {}

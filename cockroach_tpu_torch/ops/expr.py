@@ -35,8 +35,11 @@ the port makes explicit:
 - `//` is floor division and `mod` truncates (lax.rem), as in the JAX
   package.
 
-VecLit and VecDistance (ops/vector.py) and StrFunc (the row engine) are
-not ported: their evaluation raises, naming its ROADMAP.md item.
+StrFunc is not evaluated here, as in the JAX package: a computed string
+is a new string that the row engine mints on the host (exec/rowexec.py
+eval_datum), and the planner sends every projection that computes one
+there. VecLit and VecDistance (ops/vector.py) are not ported: their
+evaluation raises, naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -57,9 +60,7 @@ from cockroach_tpu_torch.coldata.batch import (
 # where each JAX expression node that is not ported yet is queued
 _NOT_PORTED = "not ported yet (ROADMAP.md queue 1)"
 _VECTORS_NOT_PORTED = ("vector expressions are not ported yet (ROADMAP.md "
-                       "queue 1, item 10: vectors)")
-_STRFUNC_NOT_PORTED = ("computed strings evaluate through the row engine, "
-                       "which is not ported yet (ROADMAP.md queue 1, item 7)")
+                       "queue 1, item 8: vectors)")
 
 
 class Expr:
@@ -271,8 +272,8 @@ class ScalarFunc(Expr):
 
 @dataclass(frozen=True, eq=False)
 class StrFunc(Expr):
-    """Computed string expression: upper/lower/substring/concat (the row
-    engine's; not evaluated by the port yet)."""
+    """Computed string expression: upper/lower/substring/concat,
+    evaluated by the row engine only (exec/rowexec.py)."""
 
     func: str
     args: Tuple[Expr, ...]
@@ -652,7 +653,8 @@ def eval_expr(expr: Expr, batch: Batch, schema: Schema,
         raise NotImplementedError(f"{type(expr).__name__}: "
                                   f"{_VECTORS_NOT_PORTED}")
     if isinstance(expr, StrFunc):
-        raise NotImplementedError(f"StrFunc: {_STRFUNC_NOT_PORTED}")
+        # the row engine's (exec/rowexec.py): the JAX package's message
+        raise TypeError(f"cannot evaluate {type(expr).__name__}")
     raise NotImplementedError(f"{type(expr).__name__}: {_NOT_PORTED}")
 
 

@@ -90,6 +90,34 @@ def _string_rank_table(schema, name, device):
     return table
 
 
+# the same for the inverse of a rank table (the code of each rank): the
+# window functions' string min/max map a winning rank back to its code
+_INVERSE_TABLES: Dict[tuple, tuple] = {}
+
+
+def string_rank_tables(schema, name, device):
+    """(rank table, its inverse) of a STRING column's dictionary on
+    `device`, or None; both cached and held as `_string_rank_table`'s."""
+    rank = _string_rank_table(schema, name, device)
+    if rank is None:
+        return None
+    d = schema.dictionary(name)
+    key = (id(d), str(torch.device(device)))
+    hit = _INVERSE_TABLES.get(key)
+    if hit is not None and hit[0] is d:
+        inv = hit[1]
+    else:
+        order = np.argsort(d.astype(str)).astype(np.int32)
+        inv = torch.from_numpy(order).to(device)
+        if len(_INVERSE_TABLES) >= _RANK_TABLES_MAX:
+            _INVERSE_TABLES.pop(next(iter(_INVERSE_TABLES)))
+        _INVERSE_TABLES[key] = (d, inv)
+    into = getattr(_HOLD, "into", None)
+    if into is not None:
+        into.append(inv)
+    return rank, inv
+
+
 def lex_keys(batch: Batch, keys: Sequence[SortKey], schema=None) -> List[torch.Tensor]:
     """Least-significant-first integer key columns whose lexicographic
     sort implements ORDER BY `keys` (selected rows first)."""

@@ -1,18 +1,22 @@
 """Logical query plans and the plan -> operator-tree builder.
 
-Counterpart of cockroach_tpu/sql/plan.py, for the plan nodes of the
-fifteen TPC-H queries of the JAX package's PLANS: Scan, Filter, Shrink,
-Project, Join, Aggregate, OrderBy, Limit, Distinct and Apply (a
-correlated or scalar subquery). `normalize` runs the JAX package's
-passes in its order: decorrelate, push_filters, use_indexes,
-insert_shrinks. `use_indexes` changes nothing for a catalog without
-secondary indexes, which the TPC-H catalog is, and is not ported
-(ROADMAP.md queue 1, item 5). `decorrelate` rewrites every Apply into
-joins and aggregates before the other passes run, so they and `build`
-never see one. `insert_shrinks` reads the catalog's sampled statistics
-(sql/stats.py) through the cardinality model `estimate_cardinality`, so
-the port builds the JAX package's operator tree, ShrinkOps and their
-start capacities included. `build` assembles the port's exec/ operators.
+Counterpart of cockroach_tpu/sql/plan.py, for the plan nodes Scan,
+Filter, Shrink, Project, Join, Aggregate, OrderBy, Limit, Distinct,
+Window and Apply (a correlated or scalar subquery). `normalize` runs the
+JAX package's passes in its order: decorrelate, push_filters,
+use_indexes, insert_shrinks. `use_indexes` changes nothing for a catalog
+without secondary indexes, which the TPC-H catalog is, and is not ported
+(it comes with IndexScan, ROADMAP.md queue 1, item 6). `decorrelate`
+rewrites every Apply into joins and aggregates before the other passes
+run, so they and `build` never see one. `insert_shrinks` reads the
+catalog's sampled statistics (sql/stats.py) through the cardinality
+model `estimate_cardinality`, so the port builds the JAX package's
+operator tree, ShrinkOps and their start capacities included. `build`
+assembles the port's exec/ operators: a projection that computes
+strings, or a decimal division under `sql.tpu.exact_arithmetic`, runs in
+the row engine (exec/rowexec.py RowMapOp). `run` compiles a plan
+(sql/plan_compile.py) and collects it; distributed execution (`mesh`)
+waits for ROADMAP.md queue 1, item 7.
 
 Tables come from a `Catalog`: anything resolving a name to (schema,
 chunk stream).
@@ -27,14 +31,18 @@ from typing import Dict, List, Optional, Sequence, Tuple
 from cockroach_tpu_torch.coldata.batch import INT, Kind, Schema
 from cockroach_tpu_torch.exec.operators import (
     DistinctOp, HashAggOp, JoinOp, LimitOp, MapOp, Operator, OrderedAggOp,
-    ScanOp, ShrinkOp, SortOp, TopKOp,
+    ScanOp, ShrinkOp, SortOp, TopKOp, WindowOp,
+)
+from cockroach_tpu_torch.exec.rowexec import (
+    EXACT_ARITHMETIC, RowMapOp, has_decimal_division, has_string_compute,
 )
 from cockroach_tpu_torch.ops.agg import AggSpec
-from cockroach_tpu_torch.ops.expr import BoolOp, Col, Expr, Lit, StrFunc
+from cockroach_tpu_torch.ops.expr import BoolOp, Col, Expr, Lit
 from cockroach_tpu_torch.ops.sort import SortKey
 from cockroach_tpu_torch.sql.stats import (
     TableStats, conjunct_selectivity, sample_stats,
 )
+from cockroach_tpu_torch.util.settings import Settings
 
 
 # ---------------------------------------------------------------- catalog --
@@ -218,6 +226,17 @@ class Distinct(Plan):
 
 
 @dataclass(frozen=True)
+class Window(Plan):
+    input: Plan
+    partition_by: Tuple[str, ...]
+    order_by: Tuple[SortKey, ...]
+    specs: Tuple  # ops.window.WindowSpec
+
+    def inputs(self):
+        return (self.input,)
+
+
+@dataclass(frozen=True)
 class Apply(Plan):
     """Correlated subquery: for each `input` row, the subquery `sub`
     restricted to the rows whose `correlation` columns match. Never
@@ -281,6 +300,9 @@ def _plan_columns(p: Plan, catalog: Catalog) -> List[str]:
     if isinstance(p, Distinct):
         return (list(p.keys) if p.keys
                 else _plan_columns(p.input, catalog))
+    if isinstance(p, Window):
+        return (_plan_columns(p.input, catalog)
+                + [s.out for s in p.specs])
     if isinstance(p, Apply):
         cols = _plan_columns(p.input, catalog)
         if p.kind == "scalar" and p.scalar is not None:
@@ -342,6 +364,10 @@ def _rebuild(p: Plan, kids) -> Plan:
         return Limit(kids[0], p.n, p.offset)
     if isinstance(p, Distinct):
         return Distinct(kids[0], p.keys)
+    if isinstance(p, Window):
+        # filters never push THROUGH a window (they'd change frames),
+        # but pushdown inside its input subtree is preserved
+        return Window(kids[0], p.partition_by, p.order_by, p.specs)
     if isinstance(p, Apply):
         return Apply(kids[0], kids[1], p.correlation, p.kind, p.scalar)
     raise TypeError(f"unknown plan node {type(p).__name__}")
@@ -567,26 +593,6 @@ def normalize(p: Plan, catalog: Catalog) -> Plan:
 
 # ------------------------------------------------------------------ build --
 
-def _computes_string(e: Expr, schema: Schema) -> bool:
-    """Whether a projection output mints strings (a StrFunc anywhere, or a
-    non-column output of STRING type such as a CASE over strings): the
-    JAX package evaluates those in its row engine (RowMapOp)."""
-    return not isinstance(e, Col) and (
-        _has_strfunc(e) or e.type(schema).kind is Kind.STRING)
-
-
-def _has_strfunc(e: Expr) -> bool:
-    if isinstance(e, StrFunc):
-        return True
-    for child in e.__dict__.values():
-        items = child if isinstance(child, tuple) else (child,)
-        for c in items:
-            parts = c if isinstance(c, tuple) else (c,)  # Case's whens
-            if any(isinstance(x, Expr) and _has_strfunc(x) for x in parts):
-                return True
-    return False
-
-
 def _ordering_of(p: Plan) -> Tuple[str, ...]:
     """Column ordering the node's output is known to satisfy (prefix):
     only a direct OrderBy input qualifies."""
@@ -596,10 +602,13 @@ def _ordering_of(p: Plan) -> Tuple[str, ...]:
 
 
 def build(p: Plan, catalog: Catalog, capacity: int = 1 << 17,
-          _normalized: bool = False) -> Operator:
+          _normalized: bool = False, node_map=None) -> Operator:
     """Logical plan -> exec/ operator tree. With `sql.tpu.invariants` on
     (test builds) a CheckedOp (exec/invariants.py) wraps every operator,
-    as the JAX package's build does."""
+    as the JAX package's build does. `node_map` (a dict) receives
+    id(plan node) -> the operator its parent references (CheckedOp-
+    wrapped in test builds): the placement pass (sql/plan_compile.py)
+    pairs plan nodes with operators through it."""
     if not _normalized:
         p = normalize(p, catalog)
 
@@ -619,6 +628,8 @@ def build(p: Plan, catalog: Catalog, capacity: int = 1 << 17,
         except TypeError:
             hit = None
         if hit is not None:
+            if node_map is not None:
+                node_map[id(node)] = hit
             return hit
         op = _rec(node)
         # test builds insert an invariants checker above every operator
@@ -629,6 +640,8 @@ def build(p: Plan, catalog: Catalog, capacity: int = 1 << 17,
             memo[node] = op
         except TypeError:
             pass
+        if node_map is not None:
+            node_map[id(node)] = op
         return op
 
     def _rec(node: Plan) -> Operator:
@@ -638,22 +651,21 @@ def build(p: Plan, catalog: Catalog, capacity: int = 1 << 17,
             if cols:
                 schema = schema.project(cols)
             chunks = catalog.table_chunks(node.table, capacity, cols)
-            return ScanOp(schema, chunks, capacity,
-                          cache_key=catalog.scan_cache_key(
-                              node.table, cols, capacity),
-                          table=node.table)
+            op = ScanOp(schema, chunks, capacity,
+                        cache_key=catalog.scan_cache_key(
+                            node.table, cols, capacity),
+                        table=node.table)
+            # the row estimate the placement pass reads (sql/cost.py)
+            op.est_rows = catalog.table_rows(node.table)
+            return op
         if isinstance(node, Filter):
             return MapOp(rec(node.input), [("filter", node.predicate)])
         if isinstance(node, Shrink):
             return ShrinkOp(rec(node.input), capacity=node.start_capacity)
         if isinstance(node, Project):
             child = rec(node.input)
-            if any(_computes_string(e, child.schema)
-                   for _, e in node.outputs):
-                raise NotImplementedError(
-                    "a projection that computes strings runs through the "
-                    "row engine, which is not ported yet (ROADMAP.md queue "
-                    "1, item 7)")
+            if _needs_row_engine(node.outputs, child.schema):
+                return RowMapOp(child, list(node.outputs))
             return MapOp(child, [("project", list(node.outputs))])
         if isinstance(node, Join):
             return JoinOp(rec(node.left), rec(node.right),
@@ -677,6 +689,57 @@ def build(p: Plan, catalog: Catalog, capacity: int = 1 << 17,
         if isinstance(node, Distinct):
             return DistinctOp(rec(node.input),
                               list(node.keys) if node.keys else None)
+        if isinstance(node, Window):
+            return WindowOp(rec(node.input), list(node.partition_by),
+                            list(node.order_by), list(node.specs))
         raise TypeError(f"unknown plan node {type(node).__name__}")
 
     return rec(p)
+
+
+def _needs_row_engine(outputs, schema: Schema) -> bool:
+    """A projection runs in the row engine when an output computes a
+    string (a StrFunc, or a non-column output of STRING type such as a
+    CASE over strings: dictionary minting is host-side by nature), or,
+    under `sql.tpu.exact_arithmetic`, divides a decimal (the device path
+    gives float32)."""
+    def computes_string(e: Expr) -> bool:
+        if has_string_compute(e):
+            return True
+        if isinstance(e, Col):
+            return False
+        try:
+            return e.type(schema).kind is Kind.STRING
+        except (KeyError, ValueError):  # an untypable expr mints none
+            return False
+
+    if any(computes_string(e) for _, e in outputs):
+        return True
+    return bool(Settings().get(EXACT_ARITHMETIC)) and any(
+        has_decimal_division(e, schema) for _, e in outputs)
+
+
+def run(p: Plan, catalog: Catalog, capacity: int = 1 << 17, mesh=None,
+        with_schema: bool = False, op_sink=None, sql: Optional[str] = None,
+        device=None, setting: str = "auto", resident: bool = False):
+    """Execute a logical plan: compile it (sql/plan_compile.py: normalize,
+    build, placement, the fused program) and collect it on `device`
+    (CUDA unless the caller passes one). `setting` is the session's
+    `vectorize`: "cpu" places the flow on the host. `with_schema=True`
+    also returns the operator tree's output Schema; `op_sink` (a list)
+    receives the built operator tree (the session's prepared cache);
+    `sql` keys the placement pass's per-fingerprint cache; `resident`
+    marks the scans resident (compile_plan)."""
+    if mesh is not None:
+        raise NotImplementedError("distributed execution (mesh) is not "
+                                  "ported yet (ROADMAP.md queue 1, item 7)")
+    from cockroach_tpu_torch.exec.operators import collect
+    from cockroach_tpu_torch.sql.plan_compile import compile_plan
+
+    compiled = compile_plan(p, catalog, capacity, sql=sql, setting=setting,
+                            resident=resident)
+    op = compiled.op
+    if op_sink is not None:
+        op_sink.append(op)
+    result = collect(op, device=device, backend=compiled.backend)
+    return (result, op.schema) if with_schema else result

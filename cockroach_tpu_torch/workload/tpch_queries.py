@@ -1198,3 +1198,244 @@ PLANS = {
     18: lambda gen: q18_plan(),
     19: lambda gen: q19_plan(),
 }
+
+
+# ---------------------------------------------------------------- SQL text
+# The SQL texts the port's front end runs (sql/bind.py run_sql,
+# sql/session.py Session). SQL[q] binds and runs: the texts of Q1, Q3,
+# Q6, Q9 and Q18 are tests/test_sql.py's module constants, those of Q5,
+# Q10, Q12 and Q14 the `sql` strings of tests/test_sql_more.py, letter
+# for letter (Q18's threshold is a {threshold} field), and Q16's is the
+# standard TPC-H text. SQL_REJECTED[q] is standard TPC-H text that the
+# binder rejects, as the JAX package's does: Q2's correlated MIN and
+# Q17's correlated AVG do not parse, Q4's EXISTS and Q19's join inside
+# an OR do not bind, and Q15's WITH view does not parse.
+
+SQL = {
+    1: """
+select l_returnflag, l_linestatus,
+       sum(l_quantity) as sum_qty,
+       sum(l_extendedprice) as sum_base_price,
+       sum(l_extendedprice * (1 - l_discount)) as sum_disc_price,
+       sum(l_extendedprice * (1 - l_discount) * (1 + l_tax)) as sum_charge,
+       avg(l_quantity) as avg_qty,
+       avg(l_extendedprice) as avg_price,
+       avg(l_discount) as avg_disc,
+       count(*) as count_order
+from lineitem
+where l_shipdate <= date '1998-12-01' - interval '90' day
+group by l_returnflag, l_linestatus
+order by l_returnflag, l_linestatus
+""",
+    3: """
+select l_orderkey,
+       sum(l_extendedprice * (1 - l_discount)) as revenue,
+       o_orderdate, o_shippriority
+from customer, orders, lineitem
+where c_mktsegment = 'BUILDING'
+  and c_custkey = o_custkey
+  and l_orderkey = o_orderkey
+  and o_orderdate < date '1995-03-15'
+  and l_shipdate > date '1995-03-15'
+group by l_orderkey, o_orderdate, o_shippriority
+order by revenue desc, o_orderdate
+limit 10
+""",
+    5: """
+    select n_name,
+           sum(l_extendedprice * (1 - l_discount)) as revenue
+    from customer, orders, lineitem, supplier, nation, region
+    where c_custkey = o_custkey
+      and l_orderkey = o_orderkey
+      and l_suppkey = s_suppkey
+      and c_nationkey = s_nationkey
+      and s_nationkey = n_nationkey
+      and n_regionkey = r_regionkey
+      and r_name = 'ASIA'
+      and o_orderdate >= date '1994-01-01'
+      and o_orderdate < date '1995-01-01'
+    group by n_name
+    order by revenue desc
+    """,
+    6: """
+select sum(l_extendedprice * l_discount) as revenue
+from lineitem
+where l_shipdate >= date '1994-01-01'
+  and l_shipdate < date '1994-01-01' + interval '1' year
+  and l_discount between 0.05 and 0.07
+  and l_quantity < 24
+""",
+    9: """
+select n_name as nation,
+       extract(year from o_orderdate) as o_year,
+       sum(l_extendedprice * (1 - l_discount)
+           - ps_supplycost * l_quantity) as sum_profit
+from part, supplier, lineitem, partsupp, orders, nation
+where s_suppkey = l_suppkey
+  and ps_suppkey = l_suppkey
+  and ps_partkey = l_partkey
+  and p_partkey = l_partkey
+  and o_orderkey = l_orderkey
+  and s_nationkey = n_nationkey
+  and p_name like '%green%'
+group by nation, o_year
+order by nation, o_year desc
+""",
+    10: """
+    select c_custkey, c_name,
+           sum(l_extendedprice * (1 - l_discount)) as revenue,
+           c_acctbal, n_name
+    from customer, orders, lineitem, nation
+    where c_custkey = o_custkey
+      and l_orderkey = o_orderkey
+      and o_orderdate >= date '1993-10-01'
+      and o_orderdate < date '1994-01-01'
+      and l_returnflag = 'R'
+      and c_nationkey = n_nationkey
+    group by c_custkey, c_name, c_acctbal, n_name
+    order by revenue desc
+    limit 20
+    """,
+    12: """
+    select l_shipmode,
+           sum(case when o_orderpriority = '1-URGENT'
+                     or o_orderpriority = '2-HIGH'
+                    then 1 else 0 end) as high_line_count,
+           sum(case when o_orderpriority <> '1-URGENT'
+                    and o_orderpriority <> '2-HIGH'
+                    then 1 else 0 end) as low_line_count
+    from orders, lineitem
+    where o_orderkey = l_orderkey
+      and l_shipmode in ('MAIL', 'SHIP')
+      and l_commitdate < l_receiptdate
+      and l_shipdate < l_commitdate
+      and l_receiptdate >= date '1994-01-01'
+      and l_receiptdate < date '1995-01-01'
+    group by l_shipmode
+    order by l_shipmode
+    """,
+    14: """
+    select sum(case when p_type like 'PROMO%'
+                    then l_extendedprice * (1 - l_discount)
+                    else 0 end) as promo,
+           sum(l_extendedprice * (1 - l_discount)) as total
+    from lineitem, part
+    where l_partkey = p_partkey
+      and l_shipdate >= date '1995-09-01'
+      and l_shipdate < date '1995-10-01'
+    """,
+    16: """
+select p_brand, p_type, p_size,
+       count(distinct ps_suppkey) as supplier_cnt
+from partsupp, part
+where p_partkey = ps_partkey
+  and p_brand <> 'Brand#45'
+  and p_type not like 'MEDIUM POLISHED%'
+  and p_size in (49, 14, 23, 45, 19, 3, 36, 9)
+  and ps_suppkey not in (
+        select s_suppkey from supplier
+        where s_comment like '%Customer%Complaints%')
+group by p_brand, p_type, p_size
+order by supplier_cnt desc, p_brand, p_type, p_size
+""",
+    18: """
+select c_name, c_custkey, o_orderkey, o_orderdate, o_totalprice,
+       sum(l_quantity) as sum_qty
+from customer, orders, lineitem
+where o_orderkey in (
+        select l_orderkey from lineitem
+        group by l_orderkey having sum(l_quantity) > {threshold})
+  and c_custkey = o_custkey
+  and o_orderkey = l_orderkey
+group by c_name, c_custkey, o_orderkey, o_orderdate, o_totalprice
+order by o_totalprice desc, o_orderdate
+limit 100
+""",
+}
+
+SQL_REJECTED = {
+    2: """
+select s_acctbal, s_name, n_name, p_partkey, p_mfgr, s_address,
+       s_phone, s_comment
+from part, supplier, partsupp, nation, region
+where p_partkey = ps_partkey
+  and s_suppkey = ps_suppkey
+  and p_size = 15
+  and p_type like '%BRASS'
+  and s_nationkey = n_nationkey
+  and n_regionkey = r_regionkey
+  and r_name = 'EUROPE'
+  and ps_supplycost = (
+        select min(ps_supplycost)
+        from partsupp, supplier, nation, region
+        where p_partkey = ps_partkey
+          and s_suppkey = ps_suppkey
+          and s_nationkey = n_nationkey
+          and n_regionkey = r_regionkey
+          and r_name = 'EUROPE')
+order by s_acctbal desc, n_name, s_name, p_partkey
+limit 100
+""",
+    4: """
+select o_orderpriority, count(*) as order_count
+from orders
+where o_orderdate >= date '1993-07-01'
+  and o_orderdate < date '1993-07-01' + interval '3' month
+  and exists (
+        select * from lineitem
+        where l_orderkey = o_orderkey
+          and l_commitdate < l_receiptdate)
+group by o_orderpriority
+order by o_orderpriority
+""",
+    15: """
+with revenue0 as (
+        select l_suppkey as supplier_no,
+               sum(l_extendedprice * (1 - l_discount)) as total_revenue
+        from lineitem
+        where l_shipdate >= date '1996-01-01'
+          and l_shipdate < date '1996-01-01' + interval '3' month
+        group by l_suppkey)
+select s_suppkey, s_name, s_address, s_phone, total_revenue
+from supplier, revenue0
+where s_suppkey = supplier_no
+  and total_revenue = (select max(total_revenue) from revenue0)
+order by s_suppkey
+""",
+    17: """
+select sum(l_extendedprice) / 7.0 as avg_yearly
+from lineitem, part
+where p_partkey = l_partkey
+  and p_brand = 'Brand#23'
+  and p_container = 'MED BOX'
+  and l_quantity < (
+        select 0.2 * avg(l_quantity)
+        from lineitem
+        where l_partkey = p_partkey)
+""",
+    19: """
+select sum(l_extendedprice * (1 - l_discount)) as revenue
+from lineitem, part
+where (p_partkey = l_partkey
+       and p_brand = 'Brand#12'
+       and p_container in ('SM CASE', 'SM BOX', 'SM PACK', 'SM PKG')
+       and l_quantity >= 1 and l_quantity <= 1 + 10
+       and p_size between 1 and 5
+       and l_shipmode in ('AIR', 'AIR REG')
+       and l_shipinstruct = 'DELIVER IN PERSON')
+   or (p_partkey = l_partkey
+       and p_brand = 'Brand#23'
+       and p_container in ('MED BAG', 'MED BOX', 'MED PKG', 'MED PACK')
+       and l_quantity >= 10 and l_quantity <= 10 + 10
+       and p_size between 1 and 10
+       and l_shipmode in ('AIR', 'AIR REG')
+       and l_shipinstruct = 'DELIVER IN PERSON')
+   or (p_partkey = l_partkey
+       and p_brand = 'Brand#34'
+       and p_container in ('LG CASE', 'LG BOX', 'LG PACK', 'LG PKG')
+       and l_quantity >= 20 and l_quantity <= 20 + 10
+       and p_size between 1 and 15
+       and l_shipmode in ('AIR', 'AIR REG')
+       and l_shipinstruct = 'DELIVER IN PERSON')
+""",
+}

@@ -277,14 +277,24 @@ def test_dictionary_tables_are_built_once_per_operator(batch):
 
 
 @pytest.mark.parametrize("node,item", [
-    (tx.VecLit((1.0, 2.0)), "item 10"),
-    (tx.VecDistance("l2", tx.Col("f"), tx.VecLit((1.0,))), "item 10"),
-    (tx.StrFunc("upper", (tx.Col("s"),)), "item 7"),
+    (tx.VecLit((1.0, 2.0)), "item 8"),
+    (tx.VecDistance("l2", tx.Col("f"), tx.VecLit((1.0,))), "item 8"),
 ])
 def test_unported_nodes_name_their_roadmap_item(batch, node, item):
     _jb, _js, tb, ts = batch
     with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
         tx.eval_expr(node, tb, ts, {})
+
+
+def test_strfunc_is_not_evaluated_on_the_device(batch):
+    """A computed string is the row engine's (exec/rowexec.py): eval_expr
+    refuses StrFunc with the JAX package's error."""
+    jb, js, tb, ts = batch
+    with pytest.raises(TypeError) as want:
+        jx.eval_expr(jx.StrFunc("upper", (jx.Col("s"),)), jb, js)
+    with pytest.raises(TypeError) as got:
+        tx.eval_expr(tx.StrFunc("upper", (tx.Col("s"),)), tb, ts, {})
+    assert str(got.value) == str(want.value)
 
 
 def _folds():

@@ -19,8 +19,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # decorrelation), the resident scan (memory accounting, the stopper
 # of the prefetch threads, the scan-image cache), the fused runner
 # (the group join, the bit-packing, the retry classifier and the
-# breakers of the degradation ladder), and the out-of-core paths and
-# the invariants checker: imported by name, so a module
+# breakers of the degradation ladder), the out-of-core paths and the
+# invariants checker, and the SQL front end (parser, statement
+# statistics, window functions, row engine, binder, cost model and
+# placement, EXPLAIN, session, shell): imported by name, so a module
 # that goes missing fails here rather than being skipped by the package
 # walk
 SLICE_MODULES = ["ops.hash", "ops.prefix", "ops.search", "ops.rowmat",
@@ -30,7 +32,11 @@ SLICE_MODULES = ["ops.hash", "ops.prefix", "ops.search", "ops.rowmat",
                  "util.mon", "util.stop", "exec.scan_cache",
                  "coldata.arrow", "util.settings", "ops.bitpack",
                  "ops.groupjoin", "exec.fused", "util.retry",
-                 "util.circuit", "exec.spill", "exec.invariants"]
+                 "util.circuit", "exec.spill", "exec.invariants",
+                 "sql.parser", "sql.sqlstats", "ops.window",
+                 "exec.rowexec", "sql.bind", "sql.cost",
+                 "sql.plan_compile", "sql.explain", "sql.session", "cli",
+                 "__main__"]
 
 
 def test_port_imports_no_jax_pyarrow_or_jax_package():

@@ -115,6 +115,24 @@ def test_cache_stats_events():
             ("miss", "hit", "evict", "invalidate")] == [1, 1, 1, 1]
 
 
+def test_snapshot_restore_round_trip():
+    """A snapshot taken before a clear puts every entry back, in LRU
+    order, under the budget."""
+    c = tscan_cache.ScanImageCache(budget=100)
+    c.put(("a",), "A", 30)
+    c.put(("b",), "B", 40)
+    c.get(("a",))                              # a is now the newest
+    snap = c.snapshot()
+    assert snap == [(("b",), "B", 40), (("a",), "A", 30)]
+    c.clear()
+    assert len(c) == 0 and c.nbytes == 0
+    c.restore(snap)
+    assert c.snapshot() == snap and c.nbytes == 70
+    small = tscan_cache.ScanImageCache(budget=50)
+    small.restore(snap)                        # b goes first, as LRU
+    assert small.snapshot() == [(("a",), "A", 30)]
+
+
 def _monitor_trace(mon_mod, budget):
     """A fixed sequence of grow/shrink/resize/close calls on a two-level
     monitor tree: (used, peak, parent used) after each step, and the
