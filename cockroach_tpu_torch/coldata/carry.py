@@ -2,7 +2,9 @@
 
 The port never imports the JAX types: a caller turns a JAX Schema into a
 field spec and a JAX Batch into numpy arrays (np.asarray on each leaf) and
-hands those in, so both packages compute on the same state.
+hands those in, so both packages compute on the same state. An MVCC store
+crosses whole (`carry_store`): the port rebuilds it from the JAX
+engine's export of every version.
 """
 
 from __future__ import annotations
@@ -44,3 +46,28 @@ def batch_from_arrays(columns: Dict[str, Tuple[np.ndarray, Optional[np.ndarray]]
             for n, (v, m) in columns.items()}
     return Batch(cols, t(np.asarray(sel, bool)),
                  torch.full((), int(length), dtype=torch.int32, device=dev))
+
+
+def carry_store(jax_store, device=None, clock=None):
+    """A port MVCCStore holding the same history as the JAX package's
+    `jax_store`: every version of the whole keyspace (tombstones
+    included), read with its engine's `export_span` and written with the
+    port engine's `ingest_span`. Only `jax_store.engine.export_span` is
+    read, as (key bytes, timestamp with .wall/.logical, value bytes)
+    tuples, so the JAX package is never imported. The new store gets
+    `clock` (by default an HLC over a ManualClock one past the newest
+    version's wall, so a read at "now" sees every version) and `device`
+    for its resident tier."""
+    from cockroach_tpu_torch.storage.engine import open_engine
+    from cockroach_tpu_torch.storage.mvcc import MVCCStore
+    from cockroach_tpu_torch.util.hlc import HLC, ManualClock, Timestamp
+
+    entries = [(bytes(k), Timestamp(int(ts.wall), int(ts.logical)),
+                bytes(v))
+               for k, ts, v in jax_store.engine.export_span(b"", b"")]
+    engine = open_engine()
+    engine.ingest_span(entries)
+    if clock is None:
+        wall = max((ts.wall for _k, ts, _v in entries), default=0)
+        clock = HLC(ManualClock(wall + 1))
+    return MVCCStore(engine=engine, clock=clock, device=device)

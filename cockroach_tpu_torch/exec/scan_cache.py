@@ -13,9 +13,9 @@ never borrowed on another.
 
 LRU eviction runs under the `storage.hbm_scan_image_cache_bytes` budget
 (util/settings.py). Not ported yet: the fault-injection seam on insert
-(`maybe_fail("cache.insert")`, util/fault.py) and the trace records
-(util/tracing.py), which wait for those modules (ROADMAP.md queue 1,
-item 8).
+(`maybe_fail("cache.insert")`; util/fault.py is ported, the seam is
+not wired) and the trace records (util/tracing.py), both ROADMAP.md
+queue 1, item 8.
 """
 
 from __future__ import annotations
@@ -89,14 +89,21 @@ class ScanImageCache:
             stats.add("scan.cache_evict", bytes=evicted)
         return True
 
-    def invalidate(self, prefix: tuple) -> int:
-        """Drop every entry whose key starts with `prefix`; returns the
-        number of entries dropped. (The JAX package's `keep_tag`, which
-        spares its device-resident MVCC tier, waits for that tier,
-        ROADMAP.md queue 1, item 6.)"""
+    def invalidate(self, prefix: tuple, keep_tag: Optional[str] = None
+                   ) -> int:
+        """Drop every entry whose key starts with `prefix` (the storage
+        write path passes ("mvcc", engine id, table id)); returns the
+        number of entries dropped. `keep_tag` spares keys carrying that
+        marker component past the prefix — the device-resident MVCC tier
+        (storage/resident.py) tags its pin "resident-pin" so the write
+        path's eager invalidation does not evict it: the resident arrays
+        absorb writes through their delta fold, and evicting the pin
+        would detach the table on every write."""
         n = len(prefix)
         with self._mu:
-            dead = [k for k in self._entries if k[:n] == prefix]
+            dead = [k for k in self._entries
+                    if k[:n] == prefix
+                    and (keep_tag is None or keep_tag not in k[n:])]
             for k in dead:
                 _, nb = self._entries.pop(k)
                 self._bytes -= nb

@@ -18,14 +18,15 @@ shift by 64 or more gives 0, as XLA's unsigned shifts do. Where the
 bits are ordered, ops/hash.py `unsigned_order` gives the unsigned
 order.
 
-The MVCC timestamp helpers of the JAX module wait for the storage item
-(ROADMAP.md queue 1, item 6).
+The MVCC timestamp helpers (`TsOverflow`, `ts_base`, `pack_ts`,
+`pack_ts_read`, `pack_ts_arrays`) are the JAX module's, host-side numpy.
 """
 
 from __future__ import annotations
 
 from typing import Dict, NamedTuple, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from cockroach_tpu_torch.coldata.batch import Batch, Column
@@ -197,3 +198,74 @@ def unpack_lanes(packed: torch.Tensor, plan: DynPack, ref: Batch,
 def overflow_flag(plan: DynPack, budget: int = 63) -> torch.Tensor:
     """Deferred flag: the packed payload does not fit `budget` bits."""
     return plan.total_bits > budget
+
+
+# ------------------------------------------------------- HLC timestamps --
+#
+# The host-side Timestamp.pack() ((wall << 32) | logical) exceeds int64
+# for real wall clocks (~2^60 ns shifted by 32), so device-resident MVCC
+# version timestamps (storage/resident.py) ride a base-relative pack:
+# wall biased by the table's base wall in the high bits, logical in the
+# low TS_LOGICAL_BITS — the same bias-by-live-minimum trick DynPack uses
+# for int lanes, statically sized so one int64 comparison is the full
+# lexicographic (wall, logical) order.
+
+TS_LOGICAL_BITS = 20
+TS_WALL_BITS = 62 - TS_LOGICAL_BITS     # packed stays < 2^62 (int64-safe)
+_TS_LOGICAL_MAX = (1 << TS_LOGICAL_BITS) - 1
+_TS_WALL_SPAN = 1 << TS_WALL_BITS       # ~73 min of ns-resolution wall
+
+
+class TsOverflow(Exception):
+    """A version timestamp does not fit the base-relative pack (wall
+    outside [base, base + 2^TS_WALL_BITS) or logical >= 2^TS_LOGICAL_BITS).
+    The resident layer degrades to the host-walk tier on this."""
+
+
+def ts_base(min_wall: int) -> int:
+    """The pack base for a table whose smallest version wall is
+    `min_wall`: biased low by half the representable span so moderately
+    earlier explicit timestamps (tests, imports) still pack."""
+    return max(0, int(min_wall) - (_TS_WALL_SPAN >> 1))
+
+
+def pack_ts(wall: int, logical: int, base: int) -> int:
+    """Exact int64 encoding of a VERSION timestamp relative to `base`;
+    order-isomorphic to (wall, logical) for every in-range pair. Raises
+    TsOverflow out of range."""
+    delta = int(wall) - int(base)
+    if not (0 <= delta < _TS_WALL_SPAN) or not (
+            0 <= int(logical) <= _TS_LOGICAL_MAX):
+        raise TsOverflow(
+            f"timestamp ({wall},{logical}) outside base={base} pack range")
+    return (delta << TS_LOGICAL_BITS) | int(logical)
+
+
+def pack_ts_read(wall: int, logical: int, base: int) -> int:
+    """Encode a READ timestamp for `<=` comparison against packed
+    versions. Out-of-range reads clamp to sentinels that preserve the
+    comparison outcome exactly, PROVIDED every version packed without
+    overflow: a read below the base sees nothing (-1 < every packed
+    version), a read past the span sees everything, and a clamped
+    logical is >= every in-range logical at the same wall."""
+    delta = int(wall) - int(base)
+    if delta < 0:
+        return -1
+    if delta >= _TS_WALL_SPAN:
+        return 1 << 62
+    return (delta << TS_LOGICAL_BITS) | min(int(logical), _TS_LOGICAL_MAX)
+
+
+def pack_ts_arrays(walls: np.ndarray, logicals: np.ndarray,
+                   base: int) -> np.ndarray:
+    """Vectorized pack_ts over version-timestamp arrays (delta ingest
+    batches); raises TsOverflow when ANY element is out of range."""
+    walls = np.asarray(walls, dtype=np.int64)
+    logicals = np.asarray(logicals, dtype=np.int64)
+    deltas = walls - np.int64(base)
+    if len(walls) and (
+            int(deltas.min()) < 0 or int(deltas.max()) >= _TS_WALL_SPAN
+            or int(logicals.min()) < 0
+            or int(logicals.max()) > _TS_LOGICAL_MAX):
+        raise TsOverflow(f"timestamp batch outside base={base} pack range")
+    return (deltas << np.int64(TS_LOGICAL_BITS)) | logicals

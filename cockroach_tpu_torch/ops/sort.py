@@ -178,3 +178,46 @@ def top_k_batch(batch: Batch, keys: Sequence[SortKey], k: int,
     sel = torch.arange(k, device=batch.device) < length
     out = batch.gather(kidx, sel=sel, length=length)
     return Batch(mask_padding(out.columns, sel), sel, length)
+
+
+def range_top_k(values: torch.Tensor, pks: torch.Tensor, lo, hi, *,
+                k: int, window: int, pk0: Optional[int] = None):
+    """Top-k (descending) of `values` restricted to rows whose sorted
+    primary key falls in [lo, hi), with hi - lo bounded by the static
+    `window` — the kernel of a YCSB-E scan+top-K micro-query (JAX
+    ops/sort.py range_top_k, bit for bit).
+
+    A searchsorted locates the range start and a static `window`-row
+    gather covers it; out-of-range lanes get the dtype's minimum as a
+    sentinel. When the key column is known contiguous (`pk0` given:
+    pks[i] == pk0 + i), the search and the validity pk reads collapse to
+    arithmetic. `lo` and `hi` are scalars (one op) or (B,) tensors (B
+    ops at once: one (B, window) gather and one sort along dim 1, what
+    the JAX package's `jax.vmap` gives).
+
+    Returns (top values (..., k), valid mask (..., k), matched-row count
+    (...,) int32)."""
+    dev = values.device
+    lo = torch.as_tensor(lo, dtype=torch.int64, device=dev)
+    hi = torch.as_tensor(hi, dtype=torch.int64, device=dev)
+    n = int(pks.shape[0])
+    if pk0 is None:
+        start = torch.searchsorted(pks, lo.reshape(-1)).reshape(lo.shape)
+    else:
+        start = torch.clamp(lo - pk0, 0, n)
+    idx = start.unsqueeze(-1) + torch.arange(window, device=dev)
+    cidx = torch.clamp(idx, max=max(n - 1, 0))
+    if n == 0:
+        pk = torch.zeros_like(idx)
+        vals = torch.zeros(idx.shape, dtype=values.dtype, device=dev)
+    else:
+        pk = pks[cidx] if pk0 is None else cidx + pk0
+        vals = values[cidx]
+    valid = (idx < n) & (pk >= lo.unsqueeze(-1)) & (pk < hi.unsqueeze(-1))
+    sentinel = torch.iinfo(values.dtype).min
+    masked = torch.where(valid, vals, sentinel)
+    top = torch.sort(masked, dim=-1, descending=True).values[..., :k]
+    count = valid.sum(-1, dtype=torch.int32)
+    mask = (torch.arange(top.shape[-1], device=dev)
+            < torch.clamp(count, max=k).unsqueeze(-1))
+    return top, mask, count

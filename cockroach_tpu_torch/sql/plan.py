@@ -5,8 +5,9 @@ Filter, Shrink, Project, Join, Aggregate, OrderBy, Limit, Distinct,
 Window and Apply (a correlated or scalar subquery). `normalize` runs the
 JAX package's passes in its order: decorrelate, push_filters,
 use_indexes, insert_shrinks. `use_indexes` changes nothing for a catalog
-without secondary indexes, which the TPC-H catalog is, and is not ported
-(it comes with IndexScan, ROADMAP.md queue 1, item 6). `decorrelate`
+without secondary indexes, which the TPC-H and MVCC catalogs are, and is
+not ported (it comes with IndexScan and the storage-backed session,
+ROADMAP.md queue 1, item 6b). `decorrelate`
 rewrites every Apply into joins and aggregates before the other passes
 run, so they and `build` never see one. `insert_shrinks` reads the
 catalog's sampled statistics (sql/stats.py) through the cardinality
@@ -19,7 +20,8 @@ the row engine (exec/rowexec.py RowMapOp). `run` compiles a plan
 waits for ROADMAP.md queue 1, item 7.
 
 Tables come from a `Catalog`: anything resolving a name to (schema,
-chunk stream).
+chunk stream): `TPCHCatalog` (generated data) or `MVCCCatalog` (the
+tables of an MVCC store, storage/mvcc.py).
 """
 
 from __future__ import annotations
@@ -77,6 +79,15 @@ class Catalog:
         catalog cannot vouch that the data behind a name is unchanged."""
         return None
 
+    def scan_source(self, name: str, columns=None):
+        """(store, table_id, read ts, column indices) of the MVCC store
+        backing this table, or None when the table has no reachable
+        store (generated data). The indices map each projected output
+        column to its row in the resident value lanes. `build` stamps it
+        on the ScanOp as `_mvcc_src`, which distributed ingest reads
+        (ROADMAP.md queue 1, item 7)."""
+        return None
+
 
 _TPCH_PKS = {
     "part": ("p_partkey",), "supplier": ("s_suppkey",),
@@ -128,6 +139,81 @@ class TPCHCatalog(Catalog):
         return ("tpch", float(self.gen.sf),
                 int(getattr(self.gen, "seed", 0)), name, int(capacity),
                 tuple(columns or ()))
+
+
+class MVCCCatalog(Catalog):
+    """Tables served by the MVCC storage layer (storage/mvcc.py): name ->
+    (table_id, Schema); scans stream the newest-visible rows through the
+    native columnar scanner (or the store's resident tier).
+
+    `ts` (not in the JAX catalog) reads every table at that timestamp
+    instead of the clock's at plan time, and then keys no scan image:
+    each run of a flow built over it reads the store again."""
+
+    def __init__(self, store, tables: Dict[str, Tuple[int, Schema]],
+                 rows: Optional[Dict[str, int]] = None,
+                 pks: Optional[Dict[str, Tuple[str, ...]]] = None,
+                 stats: Optional[Dict[str, object]] = None,
+                 ts=None):
+        self.store = store
+        self.tables = dict(tables)
+        self.rows = dict(rows or {})
+        self.pks = dict(pks or {})
+        self.stats = dict(stats or {})
+        self.ts = ts
+        self._scan_ts: Dict[str, object] = {}  # name -> pinned read ts
+
+    def table_stats(self, name: str):
+        return self.stats.get(name)
+
+    def table_schema(self, name: str) -> Schema:
+        return self.tables[name][1]
+
+    def table_rows(self, name: str) -> int:
+        return self.rows.get(name, super().table_rows(name))
+
+    def table_pk(self, name: str) -> Optional[Tuple[str, ...]]:
+        return self.pks.get(name)
+
+    def table_chunks(self, name: str, capacity: int, columns=None):
+        table_id, schema = self.tables[name]
+        all_names = [f.name for f in schema]
+        store = self.store
+        # the row codec is positional: the scanner always decodes the
+        # full field tuple; a pruned column subset is projected
+        # host-side after decode
+        wanted = list(columns) if columns else all_names
+        # snapshot semantics: pin the read timestamp at plan time, the
+        # same instant scan_cache_key samples the table's write version —
+        # the cached image and the stream it came from can never diverge
+        # (a later write is invisible at this ts AND rotates the key)
+        ts = self.ts if self.ts is not None else store.clock.now()
+        self._scan_ts[name] = ts  # scan_source shares the same snapshot
+
+        def chunks():
+            for c in store.scan_chunks(table_id, len(all_names), capacity,
+                                       ts=ts, col_names=all_names):
+                yield {n: c[n] for n in wanted}
+
+        return chunks
+
+    def scan_cache_key(self, name: str, columns, capacity: int
+                       ) -> Optional[tuple]:
+        # ScanOp appends the device when it calls the cache
+        if self.ts is not None:
+            return None
+        table_id, schema = self.tables[name]
+        cols = tuple(columns) if columns else tuple(f.name for f in schema)
+        return self.store.scan_cache_prefix(table_id) + (
+            self.store.table_version(table_id), int(capacity), cols)
+
+    def scan_source(self, name: str, columns=None):
+        table_id, schema = self.tables[name]
+        all_names = [f.name for f in schema]
+        wanted = list(columns) if columns else all_names
+        ts = self._scan_ts.get(name) or self.store.clock.now()
+        return (self.store, table_id, ts,
+                tuple(all_names.index(n) for n in wanted))
 
 
 # ------------------------------------------------------------------ plans --
@@ -657,6 +743,11 @@ def build(p: Plan, catalog: Catalog, capacity: int = 1 << 17,
                         table=node.table)
             # the row estimate the placement pass reads (sql/cost.py)
             op.est_rows = catalog.table_rows(node.table)
+            src = catalog.scan_source(node.table, cols)
+            if src is not None:
+                # the MVCC store behind the scan, for distributed ingest
+                # (ROADMAP.md queue 1, item 7)
+                op._mvcc_src = src
             return op
         if isinstance(node, Filter):
             return MapOp(rec(node.input), [("filter", node.predicate)])

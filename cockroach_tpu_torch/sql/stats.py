@@ -1,22 +1,26 @@
 """Table statistics the planner reads: sampled per-column distinct counts,
 bounds and equi-depth histograms, and selectivity estimates from them.
 
-Counterpart of cockroach_tpu/sql/stats.py, for what the plan passes use:
-ColumnStats, TableStats, sample_stats, conjunct_selectivity and
-estimate_rows (numpy only). Persisting statistics (save_stats,
-load_stats, the system keyspace) waits for storage (ROADMAP.md queue 1,
-item 8).
+Counterpart of cockroach_tpu/sql/stats.py (numpy only): ColumnStats,
+TableStats with its byte encoding, sample_stats, conjunct_selectivity
+and estimate_rows, and the statistics persisted in a system keyspace of
+an MVCC store (stats_key, save_stats, load_stats), byte for byte the
+JAX package's.
 """
 
 from __future__ import annotations
 
+import json
+import struct
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
 from cockroach_tpu_torch.ops.expr import BoolOp, Cmp, Col, InList, Like, Lit
+from cockroach_tpu_torch.util.hlc import Timestamp
 
+STATS_TABLE = 0xFFE1  # system.table_statistics keyspace
 HIST_BUCKETS = 16
 SAMPLE_ROWS = 1 << 16
 
@@ -34,6 +38,22 @@ class ColumnStats:
 class TableStats:
     row_count: int
     columns: Dict[str, ColumnStats] = field(default_factory=dict)
+
+    def encode(self) -> bytes:
+        return json.dumps({
+            "row_count": self.row_count,
+            "columns": {n: vars(c) for n, c in self.columns.items()},
+        }, sort_keys=True).encode()
+
+    @staticmethod
+    def decode(b: bytes) -> "TableStats":
+        d = json.loads(b.decode())
+        return TableStats(d["row_count"], {
+            n: ColumnStats(**c) for n, c in d["columns"].items()})
+
+
+def stats_key(table_id: int) -> bytes:
+    return struct.pack(">HQ", STATS_TABLE, table_id)
 
 
 def sample_stats(chunks) -> TableStats:
@@ -85,6 +105,17 @@ def sample_stats(chunks) -> TableStats:
                 cs.histogram = [int(q) for q in qs]
         out.columns[name] = cs
     return out
+
+
+def save_stats(store, table_id: int, st: TableStats) -> None:
+    store.engine.put(stats_key(table_id), store.clock.now(), st.encode())
+
+
+def load_stats(store, table_id: int) -> Optional[TableStats]:
+    hit = store.engine.get(stats_key(table_id), Timestamp.MAX)
+    if hit is None or not hit[0]:
+        return None
+    return TableStats.decode(hit[0])
 
 
 # ------------------------------------------------------------ selectivity --

@@ -11,8 +11,9 @@ keeps only the branches whose exception types the port has:
   out-of-memory condition;
 - TERMINAL: a CUDA error (a failed launch, an illegal address), checked
   before the message tokens, and everything not listed;
-- RETRYABLE: FlowRestart (surfaced only after the widening attempts ran
-  out), ConnectionError, TimeoutError and the transient tokens.
+- RETRYABLE: an injected fault (util/fault.py InjectedFault), FlowRestart
+  (surfaced only after the widening attempts ran out), ConnectionError,
+  TimeoutError and the transient tokens.
 
 The metric registry's counters wait for util/metric.py (ROADMAP.md queue
 1, item 8); a retry counts in the per-query stats as
@@ -77,6 +78,10 @@ def classify(exc: BaseException) -> str:
     """One verdict per exception: RETRYABLE / RESOURCE / TERMINAL."""
     if isinstance(exc, (torch.cuda.OutOfMemoryError, MemoryError)):
         return RESOURCE
+    from cockroach_tpu_torch.util.fault import InjectedFault
+
+    if isinstance(exc, InjectedFault):
+        return RETRYABLE
     from cockroach_tpu_torch.exec.operators import FlowRestart
 
     if isinstance(exc, FlowRestart):

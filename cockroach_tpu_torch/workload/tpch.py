@@ -1,7 +1,9 @@
 """TPC-H data generator — dbgen-equivalent, chunked, deterministic.
 
-A copy of cockroach_tpu/workload/tpch.py without the storage loaders
-(mvcc_load, cluster_load): numpy only, and bit-identical in its output.
+A copy of cockroach_tpu/workload/tpch.py with its MVCC loader
+(mvcc_load) and without cluster_load, which waits for the distributed
+store (ROADMAP.md queue 1, item 7): numpy only, and bit-identical in its
+output.
 
 Reference: pkg/workload/tpch (the reference's Go dbgen port; queries in
 pkg/workload/tpch/queries.go). This generator is built for the streaming
@@ -26,7 +28,7 @@ Decimals are scaled int64 (scale 2), dates are int32 days since epoch.
 from __future__ import annotations
 
 import datetime
-from typing import Dict, Iterator, List, Optional
+from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
@@ -288,6 +290,36 @@ class TPCH:
         hi = self.num_rows(name) if hi is None else hi
         for a in range(lo, hi, chunk_rows):
             yield self.rows(name, a, min(a + chunk_rows, hi))
+
+    def mvcc_load(self, store, tables: Sequence[str]):
+        """Ingest generated tables into an MVCC store (bulk eng_ingest,
+        the AddSSTable path) and return an MVCCCatalog over them — the
+        TPC-H-through-the-storage-engine configuration (reference
+        pkg/storage/col_mvcc.go:391 feeding colfetcher). Table i gets
+        id 10 + i and its statistics are sampled from the loaded arrays
+        (the reference runs automatic stats after bulk ingest)."""
+        from cockroach_tpu_torch.sql.plan import _TPCH_PKS, MVCCCatalog
+        from cockroach_tpu_torch.sql.stats import sample_stats
+
+        mapping = {}
+        rows = {}
+        stats = {}
+        for i, name in enumerate(tables):
+            tid = 10 + i
+            schema = self.schema(name)
+            cols = self.table(name)
+            ordered = {f.name: np.asarray(cols[f.name], dtype=np.int64)
+                       for f in schema}
+            n = self.num_rows(name)
+            store.ingest_table(tid, np.arange(n, dtype=np.int64), ordered)
+            mapping[name] = (tid, schema)
+            rows[name] = n
+            stats[name] = sample_stats([ordered])
+            stats[name].row_count = n
+        return MVCCCatalog(store, mapping, rows=rows,
+                           pks={t: _TPCH_PKS[t] for t in tables
+                                if t in _TPCH_PKS},
+                           stats=stats)
 
     def rows(self, name: str, lo: int, hi: int) -> Dict[str, np.ndarray]:
         r = np.arange(lo, hi, dtype=np.int64)

@@ -22,7 +22,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # breakers of the degradation ladder), the out-of-core paths and the
 # invariants checker, and the SQL front end (parser, statement
 # statistics, window functions, row engine, binder, cost model and
-# placement, EXPLAIN, session, shell): imported by name, so a module
+# placement, EXPLAIN, session, shell), and the storage layer (the
+# clock, fault injection, the engines, the store, the resident tier
+# and its visibility pass, YCSB): imported by name, so a module
 # that goes missing fails here rather than being skipped by the package
 # walk
 SLICE_MODULES = ["ops.hash", "ops.prefix", "ops.search", "ops.rowmat",
@@ -36,7 +38,9 @@ SLICE_MODULES = ["ops.hash", "ops.prefix", "ops.search", "ops.rowmat",
                  "sql.parser", "sql.sqlstats", "ops.window",
                  "exec.rowexec", "sql.bind", "sql.cost",
                  "sql.plan_compile", "sql.explain", "sql.session", "cli",
-                 "__main__"]
+                 "__main__", "util.hlc", "util.fault", "storage.engine",
+                 "storage.mvcc", "storage.resident", "ops.mvcc_filter",
+                 "workload.ycsb"]
 
 
 def test_port_imports_no_jax_pyarrow_or_jax_package():
