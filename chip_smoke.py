@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (cockroach_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py [--profile DIR]
+    python3 chip_smoke.py [--profile DIR] [--trace-runs N] [--seed S]
 
 Phases, each printed on lines of its own:
   1. the device, and `nvidia-smi --query-gpu=name,power.limit`;
@@ -203,13 +203,38 @@ Phases, each printed on lines of its own:
      micro-queries (k YCSB_MICRO_K) one call each and in batches of
      YCSB_BATCH, bit-identical and equal to a numpy oracle per op, with
      both rates and the occupancy.
-Then the whole run's seconds (`[13]`), one JSON line per query (Q1 and
+ 13. the storage-backed session (sql/session.py SessionCatalog) at SF 1
+     on CUDA, the scan-image cache's images held aside as in phase 12:
+     (a) lineitem (a hidden rowid), orders and customer loaded
+     (`session_load`: the session's row codec straight into a native
+     engine, descriptors with the generator's dictionaries), each read
+     back by a host walk through `table_chunks` equal to the generator
+     by digest; (b) the SQL Q1 and Q6 through a Session with the
+     resident tier on: a cold execute and WARM_RUNS prepared hits (one
+     replay, at most one sync each), a traced warm Q1 replay running
+     FUSED_K1 dense_sums, every result equal to its oracle and to phase
+     9's rows; (c) TPC-H RF1 (SF x RF1_ORDERS new orders with 1-7
+     lineitems each, drawn from --seed) inserted in INSERT_ROWS-row
+     statements in a transaction: a second session's Q1 meanwhile is a
+     replay of the old rows; COMMIT; the next Q1 rebuilds over the
+     folded resident image and the one after replays, both equal to the
+     oracle over the union, with K1 once a traced replay; a second batch
+     rolled back leaves Q1 unchanged; (d) CREATE INDEX on INDEX_ON
+     (a jobs-registry backfill of every row), EXPLAIN naming the index
+     scan, POINT_LOOKUPS point lookups (keys from --seed) each equal to
+     numpy, and an insert found through the index; (e) UPDATE, DELETE
+     and ALTER TABLE ADD COLUMN on customer and ANALYZE lineitem, timed,
+     every read after them equal to numpy; (f) the 35 files of
+     tests/testdata/logic through sessions on CUDA (capacity 128), each
+     block as the file expects.
+Then the whole run's seconds (`[14]`), one JSON line per query (Q1 and
 phases 6 to 9), phase 10's JSON line, one `sql_<name>` JSON line per
-phase 11 record, phase 12's JSON line, the JSON line of kernels
-(dense_sums' launches in the Q1 run, by path: Q1, Q12, Q4 and Q5, in
-the traced fused replays of Q1, Q4, Q5 and Q12, in the traced SQL
-replays of Q1 and Q12, with every trace's reading, and in the MVCC
-runs of phase 12; its
+phase 11 record, phase 12's and phase 13's JSON lines, the JSON line of
+kernels (dense_sums' launches in the Q1 run, by path: Q1, Q12, Q4 and
+Q5, in the traced fused replays of Q1, Q4, Q5 and Q12, in the traced SQL
+replays of Q1 and Q12, with every trace's reading, in the MVCC runs of
+phase 12 and in the session's traced Q1 replays of phase 13, before and
+after the committed write; its
 times at Q1's, Q4's and Q5's shapes and at the fused queries' shapes),
 the card line and, last, the result line.
 
@@ -223,7 +248,8 @@ phases 6, 7 and 8 print each query's device busy time, the join probes'
 cummax total and call count, and its ten longest device ops. Phase 9's
 traced replays go to DIR/<query>_fused_*, or without --profile to
 build/phase9_traces/; phase 11's to DIR/sql_* or build/phase11_traces/;
-phase 12's to DIR/q1_mvcc_fused_* or build/phase12_traces/.
+phase 12's to DIR/q1_mvcc_fused_* or build/phase12_traces/; phase 13's
+to DIR/q1_session* or build/phase13_traces/.
 """
 
 import argparse
@@ -2192,10 +2218,11 @@ def sql_rows(name: str, res) -> list:
     return query_rows(name, res)
 
 
-def session_run(torch, session, sql: str):
+def session_run(torch, session, sql: str, seconds=None):
     """One Session.execute: (result, seconds, synchronizing calls, every
     stage's event count, the parses it made, kernel launches). The launch
-    counts are set to 0 just before it and read just after."""
+    counts are set to 0 just before it and read just after. A dict
+    `seconds` receives every stage's seconds."""
     import warnings
 
     from cockroach_tpu_torch.exec import stats
@@ -2226,6 +2253,8 @@ def session_run(torch, session, sql: str):
         raise SystemExit(f"{sql[:40]!r}: {kind}, expected rows")
     syncs = sum("synchroniz" in str(w.message) for w in caught)
     events = {n: st.events for n, st in col.stages.items()}
+    if seconds is not None:
+        seconds.update({n: st.seconds for n, st in col.stages.items()})
     events["host.rowmap.rows"] = (col.stages["host.rowmap"].rows
                                   if "host.rowmap" in col.stages else 0)
     events["host.rowmap.s"] = (col.stages["host.rowmap"].seconds
@@ -3411,6 +3440,626 @@ def run_phase12(torch, gen, dev, q1_streaming, profile_dir):
     return rec, k1
 
 
+# ----------------------------------------------------------- phase 13
+
+SESSION_TABLES = ("lineitem", "orders", "customer")
+# the session tables' primary keys; lineitem and partsupp keep a hidden
+# rowid (their TPC-H keys are composite)
+SESSION_PKS = {"orders": "o_orderkey", "customer": "c_custkey",
+               "part": "p_partkey", "supplier": "s_suppkey",
+               "nation": "n_nationkey", "region": "r_regionkey"}
+SESSION_QUERIES = ("q1", "q6")
+RF1_ORDERS = 1500        # TPC-H 2.5, RF1: SF x 1,500 new orders
+RF1_LINES = (1, 7)       # each with 1 to 7 lineitems
+INSERT_ROWS = 500        # rows per INSERT statement
+POINT_LOOKUPS = 1000
+INDEX_ON = ("orders", "o_custkey")
+LOOKUP_SQL = ("select o_orderkey, o_totalprice from orders "
+              "where o_custkey = {k}")
+UPDATE_NATION = 7
+DELETE_ABOVE = 149_000
+LOGIC_CAPACITY = 128
+
+
+def session_load(gen, store, tables):
+    """Generated TPC-H tables as the tables of a SessionCatalog over
+    `store`, written the way a bulk import writes them: each table's rows
+    go straight into the engine in the session's row codec (the value
+    columns' int64 slots in the schema's order, the primary key in the
+    key (SESSION_PKS; else a hidden rowid from 1), then a NULL bitmap of
+    0), and a TableDescriptor holding the generator's dictionaries, its
+    `next_rowid` and `row_count` is saved. Every column is declared NOT
+    NULL, as TPC-H declares them. -> (SessionCatalog, {table: seconds})."""
+    from cockroach_tpu_torch.coldata.batch import Kind
+    from cockroach_tpu_torch.sql.session import (
+        SessionCatalog, TableDescriptor, _type_name,
+    )
+
+    cat = SessionCatalog(store)
+    secs = {}
+    for name in tables:
+        t0 = time.perf_counter()
+        schema = gen.schema(name)
+        table = gen.table(name)
+        n = gen.num_rows(name)
+        pk = SESSION_PKS.get(name)
+        pks = (np.asarray(table[pk], np.int64) if pk
+               else np.arange(1, n + 1, dtype=np.int64))
+        order = np.argsort(pks, kind="stable")
+        slots = {f.name: np.asarray(table[f.name], np.int64)[order]
+                 for f in schema if f.name != pk}
+        slots["__nulls"] = np.zeros(n, np.int64)
+        tid = cat._next_id()
+        store.ingest_table(tid, pks[order], slots)
+        columns = [(f.name, _type_name(f.type)) for f in schema]
+        dicts = {f.name: [str(s) for s in schema.dictionary(f.name)]
+                 for f in schema if f.type.kind is Kind.STRING}
+        cat.save(TableDescriptor(
+            tid, name, columns, pk, dicts=dicts,
+            next_rowid=n + 1 if pk is None else 1, row_count=n,
+            notnull=[c for c, _ in columns]))
+        secs[name] = time.perf_counter() - t0
+    return cat, secs
+
+
+def sql_literal(ty, dictionary, v: int) -> str:
+    """One stored value as an INSERT literal of its column's type."""
+    from cockroach_tpu_torch.coldata.batch import Kind
+
+    if ty.kind is Kind.STRING:
+        return "'" + str(dictionary[v]).replace("'", "''") + "'"
+    if ty.kind is Kind.DECIMAL:
+        unit = 10 ** ty.scale
+        return (f"{'-' if v < 0 else ''}{abs(v) // unit}."
+                f"{abs(v) % unit:0{ty.scale}d}")
+    if ty.kind is Kind.DATE:
+        import datetime
+
+        day = datetime.date(1970, 1, 1) + datetime.timedelta(days=v)
+        return f"date '{day.isoformat()}'"
+    return str(v)
+
+
+def insert_statements(gen, name: str, cols: dict) -> list:
+    """INSERT statements of at most INSERT_ROWS rows each, for the rows
+    `cols` (int64 columns of the table, in its schema's codes)."""
+    schema = gen.schema(name)
+    fields = [(f.type, schema.dictionary(f.name), cols[f.name].tolist())
+              for f in schema]
+    n = len(fields[0][2])
+    rows = ["(" + ", ".join(sql_literal(ty, d, vals[i])
+                            for ty, d, vals in fields) + ")"
+            for i in range(n)]
+    return [f"insert into {name} values " + ", ".join(rows[a:a + INSERT_ROWS])
+            for a in range(0, n, INSERT_ROWS)]
+
+
+def rf1_rows(gen, rng, n_orders: int, first_key: int):
+    """The rows of TPC-H's refresh function RF1 (spec 2.5): `n_orders` new
+    orders keyed from `first_key` up, each with RF1_LINES lineitems; every
+    other value is drawn with `rng` from the loaded column (so strings
+    stay in their dictionaries). -> (orders, lineitem) int64 columns."""
+    orders_t, li_t = gen.table("orders"), gen.table("lineitem")
+    keys = np.arange(first_key, first_key + n_orders, dtype=np.int64)
+    orders = {f.name: (keys if f.name == "o_orderkey" else rng.choice(
+        np.asarray(orders_t[f.name], np.int64), n_orders))
+        for f in gen.schema("orders")}
+    lines = rng.integers(RF1_LINES[0], RF1_LINES[1] + 1, n_orders)
+    m = int(lines.sum())
+    fixed = {"l_orderkey": np.repeat(keys, lines),
+             "l_linenumber": np.concatenate(
+                 [np.arange(1, k + 1) for k in lines]).astype(np.int64)}
+    li = {f.name: fixed.get(f.name) if f.name in fixed else rng.choice(
+        np.asarray(li_t[f.name], np.int64), m)
+        for f in gen.schema("lineitem")}
+    return orders, li
+
+
+def parse_corpus(text: str) -> list:
+    """A logic-corpus file (tests/testdata/logic/*.txt) as [(kind, sql,
+    expected lines)]: the format tests/test_logic.py reads."""
+    blocks = []
+    lines = text.splitlines()
+    i = 0
+    while i < len(lines):
+        line = lines[i].strip()
+        if not line or line.startswith("#"):
+            i += 1
+            continue
+        if line.startswith("statement"):
+            kind = "statement_error" if "error" in line else "statement_ok"
+            i += 1
+            sql = []
+            while i < len(lines) and lines[i].strip():
+                sql.append(lines[i])
+                i += 1
+            blocks.append((kind, "\n".join(sql), None))
+        elif line.startswith("query"):
+            i += 1
+            sql = []
+            while i < len(lines) and lines[i].strip() != "----":
+                sql.append(lines[i])
+                i += 1
+            i += 1
+            expected = []
+            while i < len(lines) and lines[i].strip():
+                expected.append(lines[i].strip())
+                i += 1
+            blocks.append(("query", "\n".join(sql), expected))
+        else:
+            raise SystemExit(f"corpus: bad line {line!r}")
+    return blocks
+
+
+def render_rows(payload, schema) -> list:
+    """Result rows as text, as tests/test_logic.py renders them."""
+    from cockroach_tpu_torch.cli import decode_column
+
+    cols = []
+    for n in [n for n in payload if not n.endswith("__valid")]:
+        ty = d = None
+        if schema is not None and n in schema.names():
+            ty, d = schema.field(n).type, schema.dictionary(n)
+        cols.append(decode_column(payload[n], payload.get(n + "__valid"),
+                                  ty, d))
+    return [" ".join("NULL" if c[r] is None else c[r] for c in cols)
+            for r in range(len(cols[0]) if cols else 0)]
+
+
+def corpus_files() -> list:
+    """The logic corpus's files (tests/testdata/logic/*.txt)."""
+    import glob
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    paths = sorted(glob.glob(os.path.join(here, "tests", "testdata", "logic",
+                                          "*.txt")))
+    if not paths:
+        raise SystemExit("the logic corpus (tests/testdata/logic) is "
+                         "missing")
+    return paths
+
+
+def run_corpus_file(path: str, dev) -> int:
+    """Every block of one corpus file through a fresh Session over a
+    SessionCatalog (PyEngine store) on `dev`, capacity LOGIC_CAPACITY:
+    each statement runs or raises as the file says, and each query's
+    rendered rows equal its expected lines. A `statement error` block
+    expects one of the session's user-facing errors (ParseError,
+    BindError, SQLError); any other exception, a device fault among
+    them, fails the file. -> the blocks run."""
+    from cockroach_tpu_torch.sql.bind import BindError
+    from cockroach_tpu_torch.sql.parser import ParseError
+    from cockroach_tpu_torch.sql.session import (
+        Session, SessionCatalog, SQLError,
+    )
+    from cockroach_tpu_torch.storage.engine import PyEngine
+    from cockroach_tpu_torch.storage.mvcc import MVCCStore
+    from cockroach_tpu_torch.util.hlc import HLC, ManualClock
+
+    name = os.path.basename(path)
+    store = MVCCStore(engine=PyEngine(), clock=HLC(ManualClock(1000)),
+                      device=dev)
+    sess = Session(SessionCatalog(store), capacity=LOGIC_CAPACITY,
+                   device=dev)
+    with open(path) as f:
+        blocks = parse_corpus(f.read())
+    if not blocks:
+        raise SystemExit(f"corpus {name}: no blocks")
+    for kind, sql, expected in blocks:
+        try:
+            k, payload, schema = sess.execute(sql)
+        except (ParseError, BindError, SQLError) as e:
+            if kind != "statement_error":
+                raise SystemExit(f"corpus {name}: {sql!r} raised "
+                                 f"{type(e).__name__}: {e}") from e
+            continue
+        except Exception as e:  # noqa: BLE001 — never a block's answer
+            raise SystemExit(f"corpus {name}: {sql!r} raised "
+                             f"{type(e).__name__}: {e}") from e
+        if kind == "statement_error":
+            raise SystemExit(f"corpus {name}: {sql!r} did not raise")
+        got = render_rows(payload, schema) if k == "rows" else None
+        if kind == "query" and got != expected:
+            raise SystemExit(f"corpus {name}: {sql!r} gave {k} {got}, "
+                             f"expected {expected}")
+        if kind == "statement_ok" and k not in ("ok", "rows"):
+            raise SystemExit(f"corpus {name}: {sql!r} gave {k}")
+    return len(blocks)
+
+
+def run_corpus(dev) -> dict:
+    """Every corpus file through run_corpus_file on `dev`. -> {file:
+    (blocks, seconds)}."""
+    out = {}
+    for path in corpus_files():
+        t0 = time.perf_counter()
+        n = run_corpus_file(path, dev)
+        out[os.path.basename(path)] = (n, time.perf_counter() - t0)
+    return out
+
+
+def table_digests(columns: dict) -> dict:
+    """{column: sha256 of its int64 values}."""
+    import hashlib
+
+    return {c: hashlib.sha256(np.ascontiguousarray(
+        np.asarray(v, np.int64)).tobytes()).hexdigest()
+        for c, v in columns.items()}
+
+
+def run_phase13(torch, gen, dev, q1_streaming, profile_dir, seed):
+    """The storage-backed session at SF 1 on the card: (a) lineitem,
+    orders and customer loaded into a SessionCatalog over a native-engine
+    MVCCStore (session_load), each read back by a host walk through
+    `table_chunks` and held to the generator's columns by digest; (b) the
+    SQL Q1 and Q6 through a Session on CUDA with the resident tier on (a
+    cold execute and WARM_RUNS prepared hits, each one replay and at
+    most one sync; a traced warm Q1 replay runs FUSED_K1 dense_sums);
+    (c) RF1's rows (drawn from `seed`) inserted in a transaction: a
+    second session's Q1 does not see them, COMMIT makes the next Q1 cold
+    (its prepared entry rotated, the resident tier folding the delta) and
+    the one after a replay, both equal to the oracle over the union; a
+    second batch rolled back leaves Q1 as it was; (d) CREATE INDEX on
+    INDEX_ON as a jobs-registry backfill, EXPLAIN naming the index scan,
+    POINT_LOOKUPS point lookups equal to numpy, an insert found through
+    the index; (e) UPDATE, DELETE, ALTER TABLE ADD COLUMN on customer and
+    ANALYZE lineitem, every read after them equal to numpy; (f) the logic
+    corpus through sessions on CUDA. -> (JSON record, {K1 path:
+    launches})."""
+    from cockroach_tpu_torch.server.jobs import Registry
+    from cockroach_tpu_torch.sql.session import Session
+    from cockroach_tpu_torch.storage import resident
+    from cockroach_tpu_torch.storage.engine import NativeEngine
+    from cockroach_tpu_torch.storage.mvcc import MVCCStore, encode_key
+    from cockroach_tpu_torch.util.hlc import HLC
+    from cockroach_tpu_torch.util.settings import Settings
+    from cockroach_tpu_torch.workload import tpch_queries as tq
+
+    t_phase = time.perf_counter()
+    rec: dict = {"card": card_line(), "seed": seed}
+    k1: dict = {}
+    rng = np.random.default_rng(seed)
+    settings = Settings()
+    prev_resident = settings.get(resident.RESIDENT_SCAN)
+    print(f"[13] the storage-backed session: SF {SF}, capacity {CAPACITY}, "
+          f"{', '.join(SESSION_TABLES)} in a SessionCatalog on {dev}",
+          flush=True)
+
+    part_s: dict = {}
+    rec["part_s"] = part_s
+    t_part = time.perf_counter()
+
+    def part_done(label):
+        nonlocal t_part
+        now = time.perf_counter()
+        part_s[label] = now - t_part
+        t_part = now
+
+    # ---- (a) the load, and a host walk of each table
+    store = MVCCStore(engine=NativeEngine(), clock=HLC(), device=dev)
+    cat, load_s = session_load(gen, store, SESSION_TABLES)
+    walk_s = {}
+    for name in SESSION_TABLES:
+        table = gen.table(name)
+        pk = SESSION_PKS.get(name)
+        order = (np.argsort(np.asarray(table[pk]), kind="stable") if pk
+                 else slice(None))
+        t0 = time.perf_counter()
+        chunks = list(cat.table_chunks(name, CAPACITY)())
+        walk_s[name] = time.perf_counter() - t0
+        got = table_digests({f.name: np.concatenate([c[f.name]
+                                                      for c in chunks])
+                             for f in gen.schema(name)})
+        want = table_digests({f.name: np.asarray(table[f.name])[order]
+                              for f in gen.schema(name)})
+        if got != want:
+            bad = sorted(c for c in want if got[c] != want[c])
+            raise SystemExit(f"session table {name}: the host walk differs "
+                             f"from the generator in {bad}")
+        del chunks
+    rows = {n: gen.num_rows(n) for n in SESSION_TABLES}
+    print(f"  (a) loaded {rows} rows in "
+          f"{ {n: round(s, 2) for n, s in load_s.items()} } s; host walks "
+          f"{ {n: round(s, 2) for n, s in walk_s.items()} } s, every "
+          f"column's digest equal to the generator's", flush=True)
+    rec["load_s"], rec["host_walk_s"], rec["rows"] = load_s, walk_s, rows
+    part_done("a")
+
+    # ---- (b) SQL Q1 and Q6 over the session tables, on CUDA
+    settings.set(resident.RESIDENT_SCAN, True)
+    session = Session(cat, capacity=CAPACITY, device=dev)
+    rf_names = gen.schema("lineitem").dicts["l_returnflag"]
+    ls_names = gen.schema("lineitem").dicts["l_linestatus"]
+    oracles = {"q1": tq.q1_oracle(gen), "q6": query_oracle("q6", gen)}
+    trace_dir = profile_dir or os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "build", "phase13_traces")
+    os.makedirs(trace_dir, exist_ok=True)
+
+    def check(name, label, res, oracle=None):
+        oracle = oracle or oracles[name]
+        if name == "q1":
+            check_q1(res, oracle, rf_names, ls_names)
+            if oracle is oracles["q1"]:
+                for c in q1_streaming:
+                    if c in res and not np.array_equal(
+                            np.asarray(res[c]), np.asarray(q1_streaming[c])):
+                        raise SystemExit(f"session q1 {label}: differs from "
+                                         f"phase 9 in {c}")
+            return
+        got = sql_rows(name, res)
+        if got != oracle or got != STREAMING_ROWS[name]:
+            raise SystemExit(f"session {name} {label}: {got[:3]} differs "
+                             f"from its oracle or phase 9's rows")
+
+    def warm_runs(sess, name, label, oracle=None):
+        text = sql_text(name)
+        times, syncs = [], []
+        for i in range(WARM_RUNS):
+            res, dt, n_sync, ev, parses, _l = session_run(torch, sess, text)
+            check(name, f"{label} warm {i + 1}", res, oracle)
+            check_warm_hit(f"session {name} {label} warm {i + 1}",
+                           sess._prepared[text].op._fused_runner, ev,
+                           parses, n_sync)
+            times.append(dt)
+            syncs.append(n_sync)
+        return times, syncs
+
+    def traced_k1(sess, stem):
+        reading = traced_replay_reading(torch, sess, sql_text("q1"),
+                                        os.path.join(trace_dir, stem))
+        if reading["dense_sums"] != FUSED_K1["q1"] or \
+                reading["mode"] != WARM_MODE:
+            raise SystemExit(f"{stem}: {reading}, expected a replay with "
+                             f"{FUSED_K1['q1']} dense_sums kernel")
+        return reading
+
+    rec["sql"] = {}
+    li_tid = cat.desc("lineitem").table_id
+    for name in SESSION_QUERIES:
+        secs: dict = {}
+        res, cold, cold_y, ev, _p, _l = session_run(
+            torch, session, sql_text(name), seconds=secs)
+        check(name, "cold", res)
+        warm, syncs = warm_runs(session, name, "")
+        rec["sql"][name] = {
+            "cold_s": cold, "cold_syncs": cold_y,
+            "cold_restarts": ev.get("flow.restart", 0),
+            "warm_s": warm, "warm_median_s": statistics.median(warm),
+            "warm_syncs": syncs,
+            "cold_host_ms": {n: s * 1e3 for n, s in secs.items()
+                             if n.startswith("scan.")}}
+        print(f"  (b) session {name}: cold {cold * 1e3:.1f} ms (host ms "
+              f"{ {n: round(v, 1) for n, v in rec['sql'][name]['cold_host_ms'].items()} }), "
+              f"warm median {statistics.median(warm) * 1e3:.3f} ms "
+              f"{[round(w * 1e3, 3) for w in warm]}, syncs {syncs}; equal "
+              f"to the oracle and phase 9", flush=True)
+    if resident.lookup(store, li_tid) is None:
+        raise SystemExit("session lineitem: the resident tier did not "
+                         "attach")
+    reading = traced_k1(session, "q1_session")
+    k1["q1_session"] = reading["dense_sums"]
+    rec["q1_traced"] = reading
+    part_done("b")
+
+    # ---- (c) RF1 in a transaction
+    o_tab = gen.table("orders")
+    first_key = int(np.asarray(o_tab["o_orderkey"]).max()) + 1
+    n_new = int(SF * RF1_ORDERS)
+    new_o, new_li = rf1_rows(gen, rng, n_new, first_key)
+    stmts = (insert_statements(gen, "orders", new_o)
+             + insert_statements(gen, "lineitem", new_li))
+    union_q1 = tq.q1_oracle_columnar(gen, [gen.table("lineitem"), new_li])
+    reader = Session(cat, capacity=CAPACITY, device=dev)
+    t0 = time.perf_counter()
+    session.execute("begin")
+    for s in stmts:
+        if session.execute(s)[0] != "ok":
+            raise SystemExit("RF1: an INSERT did not run")
+    insert_s = time.perf_counter() - t0
+    res, _dt, n_sync, ev, parses, _l = session_run(torch, reader,
+                                                   sql_text("q1"))
+    check("q1", "second session during the transaction", res)
+    check_warm_hit("second session's Q1 during the transaction",
+                   reader._prepared[sql_text("q1")].op._fused_runner, ev,
+                   parses, n_sync)
+    t0 = time.perf_counter()
+    if session.execute("commit")[1] != "COMMIT":
+        raise SystemExit("RF1: COMMIT did not commit")
+    commit_s = time.perf_counter() - t0
+    secs = {}
+    res, after_cold, _y, ev, _p, _l = session_run(torch, session,
+                                                  sql_text("q1"),
+                                                  seconds=secs)
+    check("q1", "after the commit", res, union_q1)
+    if ev.get("sql.prepared_hit") or "scan.resident_fold" not in ev:
+        raise SystemExit(f"Q1 after the commit: {ev}; expected a rebuilt "
+                         f"plan over a folded resident image")
+    after_warm, after_syncs = warm_runs(session, "q1", "after the commit",
+                                        union_q1)
+    reading = traced_k1(session, "q1_session_after_write")
+    k1["q1_session_after_write"] = reading["dense_sums"]
+    # a second batch rolled back
+    rb_o, rb_li = rf1_rows(gen, rng, n_new, first_key + n_new)
+    session.execute("begin")
+    for s in (insert_statements(gen, "orders", rb_o)
+              + insert_statements(gen, "lineitem", rb_li)):
+        session.execute(s)
+    if session.execute("rollback")[1] != "ROLLBACK":
+        raise SystemExit("RF1: ROLLBACK did not roll back")
+    res, _dt, n_sync, ev, parses, _l = session_run(torch, session,
+                                                   sql_text("q1"))
+    check("q1", "after the rollback", res, union_q1)
+    check_warm_hit("Q1 after the rollback",
+                   session._prepared[sql_text("q1")].op._fused_runner, ev,
+                   parses, n_sync)
+    rec["rf1"] = {
+        "orders": n_new, "lineitems": len(new_li["l_orderkey"]),
+        "statements": len(stmts), "insert_s": insert_s,
+        "commit_s": commit_s, "q1_after_cold_s": after_cold,
+        "q1_after_fold_ms": secs.get("scan.resident_fold", 0.0) * 1e3,
+        "q1_after_warm_s": after_warm, "q1_after_warm_syncs": after_syncs,
+        "q1_after_traced": reading}
+    print(f"  (c) RF1: {n_new} orders and {len(new_li['l_orderkey'])} "
+          f"lineitems in {len(stmts)} INSERTs in a transaction "
+          f"{insert_s:.2f} s, COMMIT {commit_s:.2f} s; a second session's "
+          f"Q1 before it a replay of the old rows; Q1 after it cold "
+          f"{after_cold * 1e3:.1f} ms (fold "
+          f"{rec['rf1']['q1_after_fold_ms']:.1f} ms), warm "
+          f"{[round(w * 1e3, 3) for w in after_warm]} ms, equal to the "
+          f"oracle over the union, K1 {reading['dense_sums']} a replay; a "
+          f"rolled-back batch left Q1 as it was", flush=True)
+    part_done("c")
+
+    # ---- (d) a secondary index and point lookups through it
+    itable, icol = INDEX_ON
+    t0 = time.perf_counter()
+    session.execute(f"create index {icol}_idx on {itable} ({icol})")
+    index_s = time.perf_counter() - t0
+    jobs = [r for r in Registry(store).list_jobs()
+            if r.kind == "index_backfill"]
+    idx_id = cat.desc(itable).indexes[icol]
+    entries, start = 0, encode_key(idx_id, 0)
+    while True:
+        res = store.engine.scan_to_cols(start, encode_key(idx_id + 1, 0),
+                                        store.clock.now(), 2, CAPACITY)
+        entries += res.rows
+        if not res.more:
+            break
+        start = res.resume_key
+    o_all = {c: np.concatenate([np.asarray(o_tab[c], np.int64), new_o[c]])
+             for c in ("o_orderkey", "o_custkey", "o_totalprice")}
+    if (len(jobs) != 1 or jobs[0].state != "succeeded"
+            or entries != len(o_all["o_orderkey"])):
+        raise SystemExit(f"CREATE INDEX: jobs {jobs}, {entries} entries for "
+                         f"{len(o_all['o_orderkey'])} rows")
+    _k, lines, _s = session.execute("explain " + LOOKUP_SQL.format(k=1))
+    if not any(f"index scan {itable}@{icol}" in ln for ln in lines):
+        raise SystemExit(f"EXPLAIN of a lookup: {lines}")
+    order = np.argsort(o_all["o_custkey"], kind="stable")
+    by_cust = {c: o_all[c][order] for c in o_all}
+    n_cust = gen.num_rows("customer")
+
+    def lookup_oracle(k):
+        lo, hi = np.searchsorted(by_cust["o_custkey"], [k, k + 1])
+        return sorted(zip(by_cust["o_orderkey"][lo:hi].tolist(),
+                          by_cust["o_totalprice"][lo:hi].tolist()))
+
+    def lookup(k, label):
+        kind, res, _s = session.execute(LOOKUP_SQL.format(k=k))
+        got = sorted(zip(np.asarray(res["o_orderkey"]).tolist(),
+                         np.asarray(res["o_totalprice"]).tolist()))
+        if kind != "rows" or got != lookup_oracle(k):
+            raise SystemExit(f"{label} o_custkey = {k}: {got} differs from "
+                             f"numpy's {lookup_oracle(k)}")
+        return len(got)
+
+    keys = rng.integers(1, n_cust + 1, POINT_LOOKUPS)
+    t0 = time.perf_counter()
+    found = sum(lookup(int(k), "point lookup") for k in keys)
+    lookups_s = time.perf_counter() - t0
+    # a row written after the backfill is found through the index
+    extra_key = first_key + 2 * n_new
+    k0 = int(keys[0])
+    row = {c: np.asarray([v], np.int64) for c, v in {
+        **{c: new_o[c][0] for c in new_o}, "o_orderkey": extra_key,
+        "o_custkey": k0}.items()}
+    session.execute(insert_statements(gen, "orders", row)[0])
+    for c in o_all:
+        by_cust[c] = np.concatenate([by_cust[c], row[c]])
+    order = np.argsort(by_cust["o_custkey"], kind="stable")
+    by_cust = {c: v[order] for c, v in by_cust.items()}
+    lookup(k0, "after an insert")
+    rec["index"] = {"table": itable, "column": icol, "entries": entries,
+                    "backfill_s": index_s,
+                    "checkpoint_start_pk": int(jobs[0].progress.get(
+                        "start_pk", 0)),
+                    "lookups": POINT_LOOKUPS, "rows_found": found,
+                    "lookups_s": lookups_s,
+                    "lookups_per_s": POINT_LOOKUPS / lookups_s}
+    print(f"  (d) CREATE INDEX on {itable} ({icol}): {entries} entries "
+          f"backfilled as a jobs-registry job in {index_s:.2f} s; EXPLAIN "
+          f"names the index scan; {POINT_LOOKUPS} point lookups ({found} "
+          f"rows) at {POINT_LOOKUPS / lookups_s:.1f} lookups/s, each equal "
+          f"to numpy; an insert after the backfill found through the "
+          f"index", flush=True)
+    part_done("d")
+
+    # ---- (e) UPDATE, DELETE, ALTER TABLE on customer; ANALYZE lineitem
+    c_tab = gen.table("customer")
+    c_key = np.asarray(c_tab["c_custkey"], np.int64)
+    c_nat = np.asarray(c_tab["c_nationkey"], np.int64)
+    c_bal = np.asarray(c_tab["c_acctbal"], np.int64).copy()
+    dml = {}
+
+    def timed(sql):
+        t0 = time.perf_counter()
+        out = session.execute(sql)
+        return out, time.perf_counter() - t0
+
+    def read_customer(label, keep):
+        _k, res, _s = session.execute("select c_custkey, c_nationkey, "
+                                      "c_acctbal from customer")
+        order = np.argsort(np.asarray(res["c_custkey"]))
+        for c, want in (("c_custkey", c_key), ("c_nationkey", c_nat),
+                        ("c_acctbal", c_bal)):
+            if not np.array_equal(np.asarray(res[c])[order], want[keep]):
+                raise SystemExit(f"customer after {label}: {c} differs "
+                                 f"from numpy")
+
+    out, dml["update_s"] = timed(f"update customer set c_acctbal = "
+                                 f"c_acctbal + 1 where c_nationkey = "
+                                 f"{UPDATE_NATION}")
+    hit = c_nat == UPDATE_NATION
+    c_bal[hit] += 100  # decimal(2): 1 is 100 hundredths
+    if out[1] != f"UPDATE {int(hit.sum())}":
+        raise SystemExit(f"UPDATE: {out[1]}, expected {int(hit.sum())} rows")
+    read_customer("the update", slice(None))
+    out, dml["delete_s"] = timed(f"delete from customer where c_custkey > "
+                                 f"{DELETE_ABOVE}")
+    keep = c_key <= DELETE_ABOVE
+    if out[1] != f"DELETE {int((~keep).sum())}":
+        raise SystemExit(f"DELETE: {out[1]}")
+    read_customer("the delete", keep)
+    out, dml["alter_s"] = timed("alter table customer add column c_flag int")
+    _k, res, _s = session.execute("select count(c_flag) as n_flag, "
+                                  "count(*) as n from customer")
+    if (int(res["n_flag"][0]), int(res["n"][0])) != (0, int(keep.sum())):
+        raise SystemExit(f"ALTER TABLE ADD COLUMN: {res}")
+    out, dml["analyze_s"] = timed("analyze lineitem")
+    n_li = gen.num_rows("lineitem") + len(new_li["l_orderkey"])
+    if out[1] != f"ANALYZE {n_li} rows":
+        raise SystemExit(f"ANALYZE: {out[1]}, expected {n_li} rows")
+    rec["dml"] = dml
+    print(f"  (e) customer: UPDATE of {int(hit.sum())} rows "
+          f"{dml['update_s']:.2f} s, DELETE of {int((~keep).sum())} rows "
+          f"{dml['delete_s']:.2f} s, ALTER TABLE ADD COLUMN (backfill of "
+          f"{int(keep.sum())} rows) {dml['alter_s']:.2f} s, each read "
+          f"after them equal to numpy; ANALYZE lineitem ({n_li} rows) "
+          f"{dml['analyze_s']:.2f} s", flush=True)
+    settings.set(resident.RESIDENT_SCAN, prev_resident)
+    del session, reader
+    resident.reset()
+    torch.cuda.empty_cache()
+    part_done("e")
+
+    # ---- (f) the logic corpus on CUDA
+    t0 = time.perf_counter()
+    corpus = run_corpus(dev)
+    corpus_s = time.perf_counter() - t0
+    blocks = sum(b for b, _s in corpus.values())
+    slow = sorted(corpus.items(), key=lambda kv: -kv[1][1])[:3]
+    print(f"  (f) the logic corpus: {len(corpus)} files, {blocks} blocks, "
+          f"every one as expected, on {dev} in {corpus_s:.1f} s (slowest "
+          f"{[(n, round(s, 2)) for n, (_b, s) in slow]})", flush=True)
+    rec["corpus"] = {"files": len(corpus), "blocks": blocks,
+                     "seconds": corpus_s}
+    part_done("f")
+    rec["seconds"] = time.perf_counter() - t_phase
+    print(f"  phase 13: {rec['seconds']:.1f} s, by part "
+          f"{ {k: round(v, 1) for k, v in part_s.items()} }", flush=True)
+    return rec, k1
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", metavar="DIR",
@@ -3419,6 +4068,9 @@ def main() -> int:
     ap.add_argument("--trace-runs", type=int, default=1, metavar="N",
                     help="phase 11 (b): traced warm replays of each SQL "
                     "text that runs K1 (default 1)")
+    ap.add_argument("--seed", type=int, default=19940211,
+                    help="phase 13: the seed of RF1's rows and the point "
+                    "lookups' keys (default 19940211)")
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -3587,6 +4239,15 @@ def main() -> int:
                                      args.profile)
     scan_image_cache().restore(cached_images)
     del cached_images
+    # ---- 13. the storage-backed session; the cache's images held aside
+    # as in phase 12 (and, with few entries, each write's invalidation
+    # scan stays short)
+    cached_images = scan_image_cache().snapshot()
+    scan_image_cache().clear()
+    records13, k1_session = run_phase13(torch, gen, dev, q1_streaming,
+                                        args.profile, args.seed)
+    scan_image_cache().restore(cached_images)
+    del cached_images
 
     kernels = [{
         "name": "dense_sums",
@@ -3601,7 +4262,7 @@ def main() -> int:
             **{f"{q}_fused": (q1_record if q == "q1" else query_records[q])[
                 "fused_k1_traced"] for q in FUSED_K1},
             **{f"{q}_sql": n for q, n in k1_sql.items()},
-            **k1_mvcc},
+            **k1_mvcc, **k1_session},
         "sql_traces": {q: records11[q]["k1_traces"] for q in k1_sql},
         "max_abs_err": worst,
         "ms": kernel_ms,
@@ -3611,7 +4272,7 @@ def main() -> int:
         "library_ms": library_ms,
         "at_shapes": {"q1": q1_shape, **k1_shapes, **fused_shapes},
     }]
-    print(f"[13] whole run {time.perf_counter() - t_start:.1f} s",
+    print(f"[14] whole run {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"q1": q1_record}))
     for name in PHASE6 + PHASE7 + PHASE8:
@@ -3620,6 +4281,7 @@ def main() -> int:
     for name, rec in records11.items():
         print(json.dumps({f"sql_{name}": rec}))
     print(json.dumps({"phase12": records12}))
+    print(json.dumps({"phase13": records13}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,9 @@ The port never imports the JAX types: a caller turns a JAX Schema into a
 field spec and a JAX Batch into numpy arrays (np.asarray on each leaf) and
 hands those in, so both packages compute on the same state. An MVCC store
 crosses whole (`carry_store`): the port rebuilds it from the JAX
-engine's export of every version.
+engine's export of every version. A JAX session's tables cross as their
+spans (`carry_session_store`): the descriptor keyspace, each live
+table's rows, its secondary indexes and its statistics.
 """
 
 from __future__ import annotations
@@ -67,6 +69,56 @@ def carry_store(jax_store, device=None, clock=None):
                for k, ts, v in jax_store.engine.export_span(b"", b"")]
     engine = open_engine()
     engine.ingest_span(entries)
+    if clock is None:
+        wall = max((ts.wall for _k, ts, _v in entries), default=0)
+        clock = HLC(ManualClock(wall + 1))
+    return MVCCStore(engine=engine, clock=clock, device=device)
+
+
+def carry_session_store(jax_store, device=None, clock=None):
+    """A port MVCCStore holding the tables of the JAX package's
+    SessionCatalog over `jax_store`: every version of its descriptor
+    keyspace and, for each table a live descriptor names, every version
+    of the table's span, of its secondary indexes' spans and of its
+    statistics key (ANALYZE's). The port's SessionCatalog over the new
+    store reads each table as the JAX one does: descriptors are the same
+    JSON, rows the same int64 slots. As `carry_store`, only
+    `jax_store.engine.export_span` is read, and the new store gets
+    `clock` (by default one past the newest version's wall) and
+    `device`."""
+    import json
+    import struct
+
+    from cockroach_tpu_torch.sql.session import DESC_TABLE
+    from cockroach_tpu_torch.sql.stats import stats_key
+    from cockroach_tpu_torch.storage.engine import open_engine
+    from cockroach_tpu_torch.storage.mvcc import MVCCStore
+    from cockroach_tpu_torch.util.hlc import HLC, ManualClock, Timestamp
+
+    def span(start: bytes, end: bytes):
+        return [(bytes(k), Timestamp(int(ts.wall), int(ts.logical)),
+                 bytes(v))
+                for k, ts, v in jax_store.engine.export_span(start, end)]
+
+    def prefix(tid: int, end: bool = False) -> bytes:
+        return struct.pack(">HQ", tid + int(end), 0)
+
+    entries = span(prefix(DESC_TABLE), prefix(DESC_TABLE, True))
+    newest = {}
+    for k, _ts, v in entries:  # key-ascending, newest version first
+        newest.setdefault(k, v)
+    for v in newest.values():
+        if not v:
+            continue  # a dropped table
+        desc = json.loads(v.decode())
+        for tid in [desc["table_id"]] + list(desc.get("indexes",
+                                                      {}).values()):
+            entries += span(prefix(tid), prefix(tid, True))
+        key = stats_key(desc["table_id"])
+        entries += span(key, key + b"\x00")
+    engine = open_engine()
+    engine.ingest_span(sorted(entries, key=lambda e: (
+        e[0], -e[1].wall, -e[1].logical)))
     if clock is None:
         wall = max((ts.wall for _k, ts, _v in entries), default=0)
         clock = HLC(ManualClock(wall + 1))

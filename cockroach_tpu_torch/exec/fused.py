@@ -60,6 +60,7 @@ the JAX tracer does.
 from __future__ import annotations
 
 import collections
+import gc
 import threading
 from typing import (
     Callable, Dict, Iterator, List, NamedTuple, Optional, Sequence, Tuple,
@@ -900,16 +901,26 @@ class FusedRunner:
         graph = torch.cuda.CUDAGraph()
         tables: list = []
         t0 = _time.perf_counter()
-        with stats.timed("fused.capture"):
-            with torch.cuda.graph(graph, pool=_graph_pool(device)):
-                mode = torch.cuda.get_sync_debug_mode()
-                torch.cuda.set_sync_debug_mode("error")
-                hold_rank_tables(tables)
-                try:
-                    prog = self._trace(images)
-                finally:
-                    hold_rank_tables(None)
-                    torch.cuda.set_sync_debug_mode(mode)
+        # no cyclic garbage collection while the capture records: one that
+        # frees an unreachable operator tree (its graph, its images)
+        # invalidates the capture and leaves the graph pool recording
+        # (torch.cuda.graph collects once before the capture begins)
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with stats.timed("fused.capture"):
+                with torch.cuda.graph(graph, pool=_graph_pool(device)):
+                    mode = torch.cuda.get_sync_debug_mode()
+                    torch.cuda.set_sync_debug_mode("error")
+                    hold_rank_tables(tables)
+                    try:
+                        prog = self._trace(images)
+                    finally:
+                        hold_rank_tables(None)
+                        torch.cuda.set_sync_debug_mode(mode)
+        finally:
+            if collecting:
+                gc.enable()
         capture_s = _time.perf_counter() - t0
         # a capture launches nothing: the launches it recorded are the
         # ones every replay makes

@@ -27,6 +27,22 @@ is the sign bit, so "below TOP" is "non-negative". `jax.lax.sort((k, v),
 num_keys=1)` is stable: here a stable torch.sort of the key and a gather
 of the value. The `fallback` and `overflow` flags are 0-d device
 tensors, read once by the flow driver.
+
+Departures from the JAX functions, where they give wrong rows (the port
+takes its streaming tier's answer, as it does for float group-join
+inputs in exec/fused.py):
+  - `int_key_aggregate` takes a group's total by a gather of the running
+    sum before the run's head, where the JAX function takes the previous
+    end by a cummax, which assumes running sums that never decrease: a
+    running sum past 2^63 - 1 wraps, and the JAX function then subtracts
+    the wrong end (k = [0, 1, 2, 2], v = [2^62, 2^62, 1, 0] gives group
+    2 the sum 2^62 + 1 there);
+  - both functions raise the fallback flag when the live keys span 2^63
+    or more, a span that wraps negative in int64 and passes the JAX
+    functions' width test, which then fold distinct keys together.
+Elsewhere, and wherever the JAX functions' flags are clear and their
+running sums do not wrap, the outputs are the JAX functions' bit for
+bit.
 """
 
 from __future__ import annotations
@@ -113,6 +129,13 @@ def _ends_first(is_end: torch.Tensor, out_capacity: int) -> torch.Tensor:
     return torch.cat([cidx, cidx.new_zeros(out_capacity - n)])
 
 
+def _span_too_wide(span: torch.Tensor, budget: int) -> torch.Tensor:
+    """Whether a live key span `khi - klo` (int64) needs more than
+    `budget` bits. A span of 2^63 or more wraps negative in int64; it is
+    too wide too."""
+    return (span >= (1 << budget)) | (span < 0)
+
+
 def _compact(cols: Dict[str, Column], is_end, n_groups, out_capacity):
     top = _ends_first(is_end, out_capacity)
     dev = is_end.device
@@ -137,10 +160,11 @@ def int_key_aggregate(
 
     out_capacity == 0 returns the UNCOMPACTED run-ends view: a batch at
     input capacity whose sel marks one lane per group, for a selective
-    filter or shrink downstream (Q18's HAVING). Per-group totals use that
-    the running sums of biased (non-negative) inputs never decrease: the
-    previous group end's running value arrives by one cummax and a lane
-    shift. A NULL key forms its own single group."""
+    filter or shrink downstream (Q18's HAVING). A group's total is its
+    end lane's running sum less the running sum just before its run's
+    head, which one scatter of the heads' positions and a gather find
+    (ops/sortjoin.py `_broadcast_heads`'s form): exact mod 2^64 however
+    the running sums wrap. A NULL key forms its own single group."""
     c = batch.col(key_col)
     dev = batch.device
     live = batch.sel
@@ -153,7 +177,7 @@ def int_key_aggregate(
     khi = torch.where(valid_live, k, -_BIG - 1).max()
     anyv = valid_live.any()
     klo = torch.where(anyv, klo, 0)
-    key_flag = anyv & ((khi - klo) >= (1 << keys.budget))
+    key_flag = anyv & _span_too_wide(khi - klo, keys.budget)
 
     kb = (k - klo).clamp(0, 1 << keys.budget)
     # live NULL keys share ONE sentinel (one NULL group); dead lanes a
@@ -175,11 +199,19 @@ def int_key_aggregate(
                                             device=dev)])
     is_end = nxt & live_s
 
+    # each lane's run head; the lane before it ends the previous run
+    n = sgk.shape[0]
+    runid = torch.cumsum(newrun, 0, dtype=torch.int32) - 1
+    heads = torch.zeros(n + 1, dtype=torch.int32, device=dev)
+    heads.scatter_(0, torch.where(newrun, runid, n).long(),
+                   torch.arange(n, dtype=torch.int32, device=dev))
+    head = heads[runid.long()].long()
+    first_run = head == 0
+    before_head = (head - 1).clamp(min=0)
+
     def seg_total(cum):
         """Per-run totals at end lanes (uncompacted)."""
-        t = torch.where(is_end, cum, 0)
-        carry = torch.cummax(t, 0).values
-        prev_end = torch.cat([cum.new_zeros(1), carry[:-1]])
+        prev_end = torch.where(first_run, 0, cum[before_head])
         return torch.where(is_end, cum - prev_end, 0)
 
     cnt_all = torch.cumsum(live_s.to(torch.int64), 0)
@@ -251,7 +283,7 @@ def group_join_aggregate(
                         torch.where(plive, pk, -_BIG - 1).max())
     any_live = blive.any() | plive.any()
     klo = torch.where(any_live, klo, 0)
-    key_flag = any_live & ((khi - klo) >= (1 << keys.budget))
+    key_flag = any_live & _span_too_wide(khi - klo, keys.budget)
 
     bb = (bk - klo).clamp(0, 1 << keys.budget)
     pb = (pk - klo).clamp(0, 1 << keys.budget)

@@ -24,8 +24,8 @@ from typing import Dict, List, Tuple
 from cockroach_tpu_torch.sql import parser as P
 from cockroach_tpu_torch.sql.bind import BindError, Binder
 from cockroach_tpu_torch.sql.plan import (
-    Aggregate, Catalog, Distinct, Filter, Join, Limit, OrderBy, Plan,
-    Project, Scan, Window, _walk_plan, normalize,
+    Aggregate, Catalog, Distinct, Filter, IndexScan, Join, Limit, OrderBy,
+    Plan, Project, Scan, Window, _walk_plan, normalize,
 )
 
 
@@ -50,13 +50,16 @@ def render_plan(p: Plan, catalog: Catalog) -> List[str]:
         return f" (~{int(est)} rows)"
 
     def describe(node: Plan) -> str:
+        if isinstance(node, IndexScan):
+            return (f"index scan {node.table}@{node.column} "
+                    f"[{node.lo}, {node.hi}]{_est(node, None)}")
         if isinstance(node, Scan):
             cols = f" columns=({', '.join(node.columns)})" \
                 if node.columns else ""
             return f"scan {node.table}{cols}{_est(node, None)}"
         if isinstance(node, Filter):
             inner = node.input
-            if isinstance(inner, Scan):
+            if isinstance(inner, (Scan, IndexScan)):
                 return f"filter {node.predicate!r}" \
                     + _est(inner, node.predicate)
             return f"filter {node.predicate!r}"

@@ -1,13 +1,14 @@
 """Logical query plans and the plan -> operator-tree builder.
 
 Counterpart of cockroach_tpu/sql/plan.py, for the plan nodes Scan,
-Filter, Shrink, Project, Join, Aggregate, OrderBy, Limit, Distinct,
-Window and Apply (a correlated or scalar subquery). `normalize` runs the
-JAX package's passes in its order: decorrelate, push_filters,
-use_indexes, insert_shrinks. `use_indexes` changes nothing for a catalog
-without secondary indexes, which the TPC-H and MVCC catalogs are, and is
-not ported (it comes with IndexScan and the storage-backed session,
-ROADMAP.md queue 1, item 6b). `decorrelate`
+IndexScan, Filter, Shrink, Project, Join, Aggregate, OrderBy, Limit,
+Distinct, Window and Apply (a correlated or scalar subquery); VectorTopK
+waits for ROADMAP.md queue 1, item 8c. `normalize` runs the JAX
+package's passes in its order: decorrelate, push_filters, use_indexes,
+insert_shrinks. `use_indexes` turns a filtered scan whose predicate
+bounds an indexed column with literals into an IndexScan under the
+same Filter; it changes nothing for a catalog without secondary indexes
+(the TPC-H and MVCC catalogs). `decorrelate`
 rewrites every Apply into joins and aggregates before the other passes
 run, so they and `build` never see one. `insert_shrinks` reads the
 catalog's sampled statistics (sql/stats.py) through the cardinality
@@ -20,8 +21,10 @@ the row engine (exec/rowexec.py RowMapOp). `run` compiles a plan
 waits for ROADMAP.md queue 1, item 7.
 
 Tables come from a `Catalog`: anything resolving a name to (schema,
-chunk stream): `TPCHCatalog` (generated data) or `MVCCCatalog` (the
-tables of an MVCC store, storage/mvcc.py).
+chunk stream): `TPCHCatalog` (generated data), `MVCCCatalog` (the
+tables of an MVCC store, storage/mvcc.py) or sql/session.py's
+`SessionCatalog` (tables that SQL DDL and DML write, with secondary
+indexes).
 """
 
 from __future__ import annotations
@@ -29,6 +32,8 @@ from __future__ import annotations
 import itertools
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
 
 from cockroach_tpu_torch.coldata.batch import INT, Kind, Schema
 from cockroach_tpu_torch.exec.operators import (
@@ -39,7 +44,7 @@ from cockroach_tpu_torch.exec.rowexec import (
     EXACT_ARITHMETIC, RowMapOp, has_decimal_division, has_string_compute,
 )
 from cockroach_tpu_torch.ops.agg import AggSpec
-from cockroach_tpu_torch.ops.expr import BoolOp, Col, Expr, Lit
+from cockroach_tpu_torch.ops.expr import BoolOp, Cmp, Col, Expr, Lit
 from cockroach_tpu_torch.ops.sort import SortKey
 from cockroach_tpu_torch.sql.stats import (
     TableStats, conjunct_selectivity, sample_stats,
@@ -67,10 +72,20 @@ class Catalog:
         """Primary-key columns."""
         return None
 
+    def table_indexes(self, name: str) -> Dict[str, object]:
+        """column name -> index metadata for secondary indexes."""
+        return {}
+
     def table_stats(self, name: str) -> Optional[TableStats]:
         """Sampled statistics (sql/stats.py) for the cardinality model,
         or None."""
         return None
+
+    def index_chunks(self, name: str, column: str, lo: int, hi: int,
+                     capacity: int, columns=None):
+        """Chunk thunk for an IndexScan (index entries in [lo, hi] ->
+        primary-row lookups)."""
+        raise NotImplementedError
 
     def scan_cache_key(self, name: str, columns, capacity: int
                        ) -> Optional[tuple]:
@@ -231,6 +246,20 @@ class Scan(Plan):
 
 
 @dataclass(frozen=True)
+class IndexScan(Plan):
+    """Constrained scan through a secondary index: read the index
+    entries in [lo, hi] on `column`, then fetch the matching primary
+    rows (the index-join shape, rowexec/joinreader.go). The predicate
+    stays in a Filter above: the bound is a superset guarantee."""
+
+    table: str
+    column: str
+    lo: int
+    hi: int          # inclusive
+    columns: Optional[Tuple[str, ...]] = None
+
+
+@dataclass(frozen=True)
 class Filter(Plan):
     input: Plan
     predicate: Expr
@@ -363,7 +392,7 @@ def _expr_columns(e: Expr, out: set) -> set:
 
 def _plan_columns(p: Plan, catalog: Catalog) -> List[str]:
     """Output column names of a plan node."""
-    if isinstance(p, Scan):
+    if isinstance(p, (Scan, IndexScan)):
         schema = catalog.table_schema(p.table)
         return list(p.columns) if p.columns else schema.names()
     if isinstance(p, Project):
@@ -511,7 +540,7 @@ def _subtree_stats(p: Plan, catalog: Catalog, cols: set):
     """TableStats of the first scanned table covering `cols` (the
     independence assumption: a conjunct references one table)."""
     for sub in _walk_plan(p):
-        if isinstance(sub, Scan) and cols <= set(
+        if isinstance(sub, (Scan, IndexScan)) and cols <= set(
                 catalog.table_schema(sub.table).names()):
             return catalog.table_stats(sub.table)
     return None
@@ -522,7 +551,7 @@ def _base_rows(p: Plan, catalog: Catalog) -> float:
     denominator of an FK->PK join's fraction)."""
     best = 1.0
     for sub in _walk_plan(p):
-        if isinstance(sub, Scan):
+        if isinstance(sub, (Scan, IndexScan)):
             st = catalog.table_stats(sub.table)
             best = max(best, float(st.row_count) if st is not None
                        else float(catalog.table_rows(sub.table)))
@@ -532,7 +561,7 @@ def _base_rows(p: Plan, catalog: Catalog) -> float:
 def estimate_cardinality(p: Plan, catalog: Catalog) -> float:
     """Output-row estimate from statistics: a selectivity per conjunct, an
     FK->PK fraction per join."""
-    if isinstance(p, Scan):
+    if isinstance(p, (Scan, IndexScan)):
         st = catalog.table_stats(p.table)
         return (float(st.row_count) if st is not None
                 else float(catalog.table_rows(p.table)))
@@ -669,12 +698,76 @@ def decorrelate(p: Plan, catalog: Catalog) -> Plan:
                    + ((p.scalar.out, Col(p.scalar.out)),))
 
 
+_INT_MIN, _INT_MAX = -(1 << 63), (1 << 63) - 1
+
+
+def _index_bounds(conjuncts, indexed):
+    """-> (column, lo, hi) from the conjuncts' literal constraints on an
+    indexed column, or None. The bound is a SUPERSET of the predicate
+    (the residual filter stays), so several comparisons intersect; the
+    narrowest column wins."""
+    best = None
+    for col in indexed:
+        lo, hi = _INT_MIN, _INT_MAX
+        constrained = False
+        for c in conjuncts:
+            if not isinstance(c, Cmp):
+                continue
+            if isinstance(c.left, Col) and c.left.name == col \
+                    and isinstance(c.right, Lit) \
+                    and isinstance(c.right.value, (int, np.integer)):
+                op, v = c.op, int(c.right.value)
+            elif isinstance(c.right, Col) and c.right.name == col \
+                    and isinstance(c.left, Lit) \
+                    and isinstance(c.left.value, (int, np.integer)):
+                # literal OP col: mirror the comparison
+                op = {"<": ">", "<=": ">=", ">": "<", ">=": "<=",
+                      "=": "=", "==": "="}.get(c.op, c.op)
+                v = int(c.left.value)
+            else:
+                continue
+            if op in ("=", "=="):
+                lo, hi = max(lo, v), min(hi, v)
+            elif op == "<":
+                hi = min(hi, v - 1)
+            elif op == "<=":
+                hi = min(hi, v)
+            elif op == ">":
+                lo = max(lo, v + 1)
+            elif op == ">=":
+                lo = max(lo, v)
+            else:
+                continue
+            constrained = True
+        if constrained and (best is None or (hi - lo) < (best[2] - best[1])):
+            best = (col, lo, hi)
+    return best
+
+
+def use_indexes(p: Plan, catalog: Catalog) -> Plan:
+    """Index selection (GenerateConstrainedScans, heuristic form): a
+    filtered scan whose predicate bounds an indexed column with literals
+    becomes an IndexScan under the same Filter."""
+    if isinstance(p, Filter) and isinstance(p.input, Scan):
+        indexed = catalog.table_indexes(p.input.table)
+        if indexed:
+            found = _index_bounds(_split_conjuncts(p.predicate), indexed)
+            if found is not None:
+                col, lo, hi = found
+                return Filter(IndexScan(p.input.table, col, lo, hi,
+                                        p.input.columns), p.predicate)
+        return p
+    kids = tuple(use_indexes(k, catalog) for k in p.inputs())
+    if not kids:
+        return p
+    return _rebuild(p, kids)
+
+
 def normalize(p: Plan, catalog: Catalog) -> Plan:
-    """The JAX package's normalize over a catalog without secondary
-    indexes (where its use_indexes pass changes nothing):
-    insert_shrinks(push_filters(decorrelate(p)))."""
-    return insert_shrinks(push_filters(decorrelate(p, catalog), catalog),
-                          catalog)
+    """The JAX package's passes in its order:
+    insert_shrinks(use_indexes(push_filters(decorrelate(p))))."""
+    return insert_shrinks(use_indexes(push_filters(
+        decorrelate(p, catalog), catalog), catalog), catalog)
 
 
 # ------------------------------------------------------------------ build --
@@ -748,6 +841,18 @@ def build(p: Plan, catalog: Catalog, capacity: int = 1 << 17,
                 # the MVCC store behind the scan, for distributed ingest
                 # (ROADMAP.md queue 1, item 7)
                 op._mvcc_src = src
+            return op
+        if isinstance(node, IndexScan):
+            schema = catalog.table_schema(node.table)
+            cols = list(node.columns) if node.columns else None
+            if cols:
+                schema = schema.project(cols)
+            chunks = catalog.index_chunks(node.table, node.column,
+                                          node.lo, node.hi, capacity,
+                                          cols)
+            # no cache key: the index span is not a table image
+            op = ScanOp(schema, chunks, capacity, table=node.table)
+            op.est_rows = max(catalog.table_rows(node.table) // 4, 1)
             return op
         if isinstance(node, Filter):
             return MapOp(rec(node.input), [("filter", node.predicate)])

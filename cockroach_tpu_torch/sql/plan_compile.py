@@ -24,8 +24,11 @@ the row engine reads once per replay).
 
 Departures: the backend under `auto` is the caller's device, so the JAX
 package's placement cache, `measured_route` and `mark_degraded` are not
-carried (sql/cost.py says why). IndexScan and VectorTopK have no rule yet: they come with
-ROADMAP.md queue 1, items 6 and 8.
+carried (sql/cost.py says why). VectorTopK has no rule yet: it comes
+with ROADMAP.md queue 1, item 8c. An IndexScan lowers to a ScanOp over
+the index's chunk stream with no cache key: the fused tracer takes it as
+the JAX tracer does (a scan it stacks for the one run, so no capture),
+and an empty index span sends the flow to the streaming operators.
 """
 
 from __future__ import annotations
@@ -41,8 +44,8 @@ from cockroach_tpu_torch.sql.cost import (
     CARD, OpCost, QueryPlacement, est_device_seconds, est_host_seconds,
 )
 from cockroach_tpu_torch.sql.plan import (
-    Aggregate, Apply, Catalog, Distinct, Filter, Join, Limit, OrderBy,
-    Plan, Project, Scan, Shrink, Window, _walk_plan, build,
+    Aggregate, Apply, Catalog, Distinct, Filter, IndexScan, Join, Limit,
+    OrderBy, Plan, Project, Scan, Shrink, Window, _walk_plan, build,
     estimate_cardinality, normalize,
 )
 
@@ -51,6 +54,7 @@ from cockroach_tpu_torch.sql.plan import (
 # display names; build() and the fused tracer implement the rules.
 LOWERING_RULES: Dict[type, tuple] = {
     Scan: ("scan", "ScanOp", "packed stacked image + flat unpack"),
+    IndexScan: ("index scan", "ScanOp", "index-bounded chunk stream"),
     Filter: ("filter", "MapOp", "ops/expr.filter_mask"),
     Project: ("project", "MapOp", "ops/expr.eval_expr"),
     Shrink: ("shrink", "ShrinkOp", "compact-to-pow2 gather"),
@@ -71,9 +75,9 @@ LOWERING_RULES: Dict[type, tuple] = {
 # family key into sqlstats' per-operator measured seconds
 # (exec/stats.operator_device) for each plan-node kind
 _FAMILY = {
-    Scan: "scan", Join: "join", Apply: "join", Aggregate: "agg",
-    Distinct: "agg", OrderBy: "sort", Limit: "sort", Window: "sort",
-    Filter: "fused", Project: "fused", Shrink: "fused",
+    Scan: "scan", IndexScan: "scan", Join: "join", Apply: "join",
+    Aggregate: "agg", Distinct: "agg", OrderBy: "sort", Limit: "sort",
+    Window: "sort", Filter: "fused", Project: "fused", Shrink: "fused",
 }
 
 
@@ -246,7 +250,7 @@ def compile_plan(p: Plan, catalog: Catalog, capacity: int = 1 << 17,
 
 
 def _describe(node: Plan) -> str:
-    if isinstance(node, Scan):
+    if isinstance(node, (Scan, IndexScan)):
         return node.table
     if isinstance(node, Join):
         return node.how + " " + ",".join(node.left_on)

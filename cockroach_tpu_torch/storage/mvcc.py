@@ -198,26 +198,13 @@ class MVCCStore:
         ts = ts or self.clock.now()
         names = list(col_names) if col_names else [
             f"f{i}" for i in range(ncols)]
-        from cockroach_tpu_torch.storage import resident as _resident
-
-        rt = _resident.maybe_attach(self, table_id, ncols)
-        if rt is not None:
-            try:
-                yield from self._resident_chunks(
-                    rt, names, ncols, capacity, ts, start_pk, end_pk)
-                return
-            except _resident.ResidentUnavailable:
-                from cockroach_tpu_torch.exec import stats
-
-                stats.add("scan.resident_fallback")
-                _resident.detach(self, table_id)
-            except Exception as e:  # noqa: BLE001 — the classifier decides
-                from cockroach_tpu_torch.exec import stats
-                from cockroach_tpu_torch.util import retry
-
-                if retry.classify(e) == retry.TERMINAL:
-                    raise
-                stats.add("scan.resident_fallback")
+        image = self.resident_columns(table_id, ncols, ts, start_pk, end_pk)
+        if image is not None:
+            pks, vals = image
+            for off in range(0, int(pks.shape[0]), capacity):
+                chunk = vals[:, off:off + capacity]
+                yield {names[i]: chunk[i] for i in range(ncols)}
+            return
         start = encode_key(table_id, start_pk)
         end = (encode_key(table_id + 1, 0) if end_pk is None
                else encode_key(table_id, end_pk))
@@ -229,28 +216,45 @@ class MVCCStore:
                 return
             start = res.resume_key
 
-    def _resident_chunks(self, rt, names, ncols: int, capacity: int,
-                         ts: Timestamp, start_pk: int,
-                         end_pk: Optional[int]
-                         ) -> Iterator[Dict[str, np.ndarray]]:
-        """Resident tier of scan_chunks: materialize the full visibility
-        image under the retry seam FIRST (so a failure can still fall
-        back to the host walk cleanly — never mid-stream), then slice."""
+    def resident_columns(self, table_id: int, ncols: int, ts: Timestamp,
+                         start_pk: int = 0, end_pk: Optional[int] = None):
+        """The resident tier's (pks, vals (ncols, k)) on the host for the
+        rows visible at `ts` in [start_pk, end_pk), materialized whole
+        under the retry seam (so a failure falls back cleanly, never
+        mid-stream), or None when the host walk serves the read: the
+        table is not resident, cannot serve (ResidentUnavailable: it
+        detaches), or failed with an error util/retry.py does not call
+        TERMINAL (device memory, a transient fault past the retries); a
+        TERMINAL error propagates. scan_chunks' tier and sql/session.py
+        SessionCatalog's."""
         from cockroach_tpu_torch.exec import stats
+        from cockroach_tpu_torch.storage import resident as _resident
+        from cockroach_tpu_torch.util import retry
         from cockroach_tpu_torch.util.fault import maybe_fail
-        from cockroach_tpu_torch.util.retry import with_retry
+
+        rt = _resident.maybe_attach(self, table_id, ncols)
+        if rt is None:
+            return None
 
         def materialize():
             maybe_fail("scan.resident")
             return rt.scan_columns(ts, start_pk, end_pk)
 
-        with stats.timed("scan.resident"):
-            pks, vals = with_retry(materialize, name="scan.resident")
-        n = int(pks.shape[0])
-        stats.add("scan.resident_rows", rows=n)
-        for off in range(0, n, capacity):
-            chunk = vals[:, off:off + capacity]
-            yield {names[i]: chunk[i] for i in range(ncols)}
+        try:
+            with stats.timed("scan.resident"):
+                pks, vals = retry.with_retry(materialize,
+                                             name="scan.resident")
+        except _resident.ResidentUnavailable:
+            stats.add("scan.resident_fallback")
+            _resident.detach(self, table_id)
+            return None
+        except Exception as e:  # noqa: BLE001 — the classifier decides
+            if retry.classify(e) == retry.TERMINAL:
+                raise
+            stats.add("scan.resident_fallback")
+            return None
+        stats.add("scan.resident_rows", rows=int(pks.shape[0]))
+        return pks, vals
 
     def scan_op(self, table_id: int, schema, capacity: int,
                 ts: Optional[Timestamp] = None, resident: bool = False):

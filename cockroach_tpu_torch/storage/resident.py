@@ -133,23 +133,43 @@ _WINDOW = 4096
 
 
 def _record_layout(buf: bytes) -> Tuple[np.ndarray, np.ndarray]:
-    """(offset, value length) of every record of an export buffer. From
-    each record on, a window of records of its size is checked at once
-    (their headers at a fixed stride); the first that differs starts the
-    next window, so a table of one row width costs a few numpy passes
-    however many tombstones break it."""
+    """(offset, value length) of every record of an export buffer. Where
+    the next record has the same size, a window of records of that size
+    is checked at once (their headers at a fixed stride), and the first
+    that differs starts the next step, so a table of one row width costs
+    a few numpy passes however many tombstones break it; where sizes
+    alternate (a row's versions on both sides of ALTER TABLE ADD COLUMN,
+    tombstones between versions), records are read one header at a
+    time, which costs far less than a window each."""
     n = len(buf)
     u8 = np.frombuffer(buf, np.uint8)
+    head = struct.Struct("<II").unpack_from
     offs, vlens = [], []
+    single_offs, single_vlens = [], []
+
+    def flush_singles():
+        if single_offs:
+            offs.append(np.asarray(single_offs, np.int64))
+            vlens.append(np.asarray(single_vlens, np.int64))
+            single_offs.clear()
+            single_vlens.clear()
+
     off = 0
     while off + _HDR <= n:
-        klen, vlen = struct.unpack_from("<II", buf, off)
+        klen, vlen = head(buf, off)
         if klen != _KEY:
             raise ResidentUnavailable("a key outside the table keyspace")
         size = _HDR + klen + vlen
-        w = min(_WINDOW, (n - off) // size)
-        if w == 0:
+        if off + size > n:
             break  # a short tail: not a whole record
+        nxt = off + size
+        if nxt + _HDR > n or head(buf, nxt) != (klen, vlen):
+            single_offs.append(off)
+            single_vlens.append(vlen)
+            off = nxt
+            continue
+        flush_singles()
+        w = min(_WINDOW, (n - off) // size)
         at = off + size * np.arange(w, dtype=np.int64)
         heads = u8[(at[:, None] + np.arange(8)).reshape(-1)].reshape(w, 8)
         heads = heads.copy().view("<u4")
@@ -158,6 +178,7 @@ def _record_layout(buf: bytes) -> Tuple[np.ndarray, np.ndarray]:
         offs.append(at[:take])
         vlens.append(np.full(take, vlen, np.int64))
         off += take * size
+    flush_singles()
     if not offs:
         return np.zeros(0, np.int64), np.zeros(0, np.int64)
     return np.concatenate(offs), np.concatenate(vlens)

@@ -1,9 +1,12 @@
 """Fault injection: named probabilistic/counted injection points, plus
 the crash-point shim for durable-write seams.
 
-A copy of cockroach_tpu/util/fault.py (stdlib only). The port wires one
-injection point so far, the resident tier's `maybe_fail("scan.resident")`
-(storage/mvcc.py); KNOWN_POINTS lists only that one. The seams of the
+A copy of cockroach_tpu/util/fault.py (stdlib only). The port wires two
+injection points so far, the resident tier's `maybe_fail("scan.resident")`
+(storage/mvcc.py, sql/session.py) and ALTER TABLE's
+`maybe_fail("alter.backfill_chunk")` (sql/session.py); KNOWN_POINTS
+lists only those. The jobs registry's checkpoint passes the crash point
+`jobs.checkpoint` (server/jobs.py, in DURABLE_POINTS). The seams of the
 scan transfer, the cache insert and the spill blocks wait for ROADMAP.md
 queue 1, item 8. The durable-write seams the port's engines pass
 through (wal.append, wal.sync, engine.flush) are the JAX package's.
@@ -56,6 +59,7 @@ class SimulatedCrash(BaseException):
 # have a matching maybe_fail() call).
 KNOWN_POINTS = (
     "scan.resident",      # resident visibility materialize (MVCCStore)
+    "alter.backfill_chunk",  # ALTER TABLE's column backfill (sql/session.py)
 )
 
 # Durable-write seams the crash shim wraps (crash_point()/DurableFile

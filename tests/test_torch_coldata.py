@@ -14,6 +14,7 @@ from cockroach_tpu.coldata import batch as jbatch
 from cockroach_tpu_torch.coldata import arrow as tarrow
 from cockroach_tpu_torch.coldata import batch as tbatch
 from cockroach_tpu_torch.coldata.carry import batch_from_arrays, schema_from_spec
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def port_schema(js):

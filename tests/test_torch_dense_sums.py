@@ -22,6 +22,7 @@ from cockroach_tpu_torch.coldata.carry import batch_from_arrays
 from cockroach_tpu_torch.ops import agg as tagg
 from cockroach_tpu_torch.ops import cuda_kernels as ck
 from cockroach_tpu_torch.util.settings import KERNELS, Settings as TSettings
+from torch_threads import one_torch_thread  # noqa: F401
 
 I64 = np.iinfo(np.int64)
 

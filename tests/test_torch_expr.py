@@ -18,6 +18,7 @@ from cockroach_tpu.workload.tpch import TPCH as JTPCH
 from cockroach_tpu.workload.tpch_queries import Q1_CUTOFF
 from cockroach_tpu_torch.coldata.carry import batch_from_arrays, schema_from_spec
 from cockroach_tpu_torch.ops import expr as tx
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def port_schema(js):

@@ -19,6 +19,7 @@ from cockroach_tpu.coldata import batch as jbatch
 from cockroach_tpu.ops import expr as jx
 from cockroach_tpu_torch.ops import expr as tx
 from test_torch_expr import assert_same_column, port_batch, port_schema
+from torch_threads import one_torch_thread  # noqa: F401
 
 N = 512
 _I64 = np.iinfo(np.int64)

@@ -33,6 +33,7 @@ from cockroach_tpu_torch.ops import prefix as tprefix
 from cockroach_tpu_torch.ops import rowmat as trowmat
 from cockroach_tpu_torch.ops import search as tsearch
 from cockroach_tpu_torch.ops import sort as tsort
+from torch_threads import one_torch_thread  # noqa: F401
 
 I64 = np.iinfo(np.int64)
 FLOAT_RTOL, FLOAT_ATOL = 1e-5, 1e-6

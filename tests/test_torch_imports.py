@@ -10,6 +10,7 @@ import textwrap
 
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -40,7 +41,8 @@ SLICE_MODULES = ["ops.hash", "ops.prefix", "ops.search", "ops.rowmat",
                  "sql.plan_compile", "sql.explain", "sql.session", "cli",
                  "__main__", "util.hlc", "util.fault", "storage.engine",
                  "storage.mvcc", "storage.resident", "ops.mvcc_filter",
-                 "workload.ycsb"]
+                 "workload.ycsb", "kv", "kv.txn", "kv.streamer", "server",
+                 "server.jobs", "coldata.carry"]
 
 
 def test_port_imports_no_jax_pyarrow_or_jax_package():
@@ -90,6 +92,21 @@ def test_numpy_to_batch_without_cuda_or_device_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         numpy_to_batch({"a": np.arange(3)}, Schema([Field("a", INT)]))
+
+
+def test_session_select_without_cuda_or_device_raises(monkeypatch):
+    """A storage-backed session's DDL and DML are host work; its SELECT
+    runs on the session's device, CUDA unless it was given one."""
+    from cockroach_tpu_torch.sql.session import Session, SessionCatalog
+    from cockroach_tpu_torch.storage.engine import PyEngine
+    from cockroach_tpu_torch.storage.mvcc import MVCCStore
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    sess = Session(SessionCatalog(MVCCStore(engine=PyEngine())))
+    sess.execute("create table t (a int)")
+    sess.execute("insert into t values (1)")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        sess.execute("select a from t")
 
 
 def test_tf32_is_off():

@@ -30,6 +30,7 @@ from cockroach_tpu_torch.exec import operators as tops
 from cockroach_tpu_torch.exec import stats
 from cockroach_tpu_torch.ops import join as tjoin
 from cockroach_tpu_torch.ops import sortjoin as tsortjoin
+from torch_threads import one_torch_thread  # noqa: F401
 
 HOWS = ("inner", "left", "semi", "anti", "right", "outer")
 

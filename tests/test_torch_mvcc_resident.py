@@ -23,6 +23,7 @@ from cockroach_tpu_torch.storage.mvcc import MVCCStore
 from cockroach_tpu_torch.util import fault
 from cockroach_tpu_torch.util.hlc import Timestamp
 from cockroach_tpu_torch.util.settings import Settings
+from torch_threads import one_torch_thread  # noqa: F401
 
 T = 3
 ENGINES = ["py", "native"]
@@ -644,3 +645,34 @@ def test_concurrent_writes_and_resident_reads():
     want = _rows(store, Timestamp(10**9, 0))
     for g, w in zip(got, want):
         assert np.array_equal(g, w)
+
+
+@pytest.mark.parametrize("pattern", ["runs", "alternating", "random"])
+def test_record_layout_mixed_widths(pattern):
+    """The export parser's offsets and value lengths equal a walk of the
+    records one header at a time, for runs of one width, widths that
+    alternate at every record (a table's versions before and after ALTER
+    TABLE ADD COLUMN, tombstones between them) and random widths, with
+    a short tail that is not a whole record."""
+    import struct
+
+    from cockroach_tpu_torch.storage import resident as res
+
+    rng = np.random.default_rng(3)
+    n = 5000
+    if pattern == "runs":
+        vl = np.repeat([64, 0, 72, 64], n // 4)
+    elif pattern == "alternating":
+        vl = np.tile([72, 64, 0], n // 3 + 1)[:n]
+    else:
+        vl = rng.choice([0, 8, 64, 72], n)
+    parts = []
+    for i, v in enumerate(vl.tolist()):
+        parts.append(struct.pack("<IIQI", 10, v, 1000 + i, i % 7)
+                     + struct.pack(">HQ", 5, i) + bytes(rng.integers(
+                         0, 256, v, dtype=np.uint8)))
+    buf = b"".join(parts) + b"\x0a\x00\x00"   # a short tail
+    offs, vlens = res._record_layout(buf)
+    want_offs = np.cumsum([0] + [30 + v for v in vl.tolist()])[:-1]
+    np.testing.assert_array_equal(offs, want_offs)
+    np.testing.assert_array_equal(vlens, vl)

@@ -32,6 +32,7 @@ from cockroach_tpu_torch.sql import stats as tstats
 from cockroach_tpu_torch.workload import tpch as ttpch
 from cockroach_tpu_torch.workload import tpch_queries as tq
 from test_torch_expr import port_batch
+from torch_threads import one_torch_thread  # noqa: F401
 
 QUERIES = {f"q{n}": (lambda g, n=n: jq.PLANS[n](g),
                      lambda g, n=n: tq.PLANS[n](g))

@@ -26,6 +26,7 @@ from cockroach_tpu_torch.exec.operators import (
 )
 from cockroach_tpu_torch.workload import tpch as ttpch
 from cockroach_tpu_torch.workload import tpch_queries as tq
+from torch_threads import one_torch_thread  # noqa: F401
 
 SF = 0.01
 CAPACITY = 1 << 14

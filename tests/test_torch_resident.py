@@ -43,6 +43,7 @@ from cockroach_tpu_torch.workload import tpch_queries as tq
 from test_torch_expr import port_schema
 from test_torch_expr_nodes import to_port
 from test_torch_q3_q18 import _assert_equal_results
+from torch_threads import one_torch_thread  # noqa: F401
 
 SF = 0.01
 CAPACITY = 1 << 14

@@ -45,6 +45,7 @@ from cockroach_tpu_torch.ops import join as tjoin
 from cockroach_tpu_torch.ops import sortjoin as tsortjoin
 from cockroach_tpu_torch.util.settings import Settings
 from test_torch_join import assert_same_batch, jax_batch, port_batch
+from torch_threads import one_torch_thread  # noqa: F401
 
 HOWS = ("inner", "left", "semi", "anti", "right", "outer")
 CARRY_HOWS = ("inner", "left", "semi", "anti")

@@ -54,6 +54,7 @@ from cockroach_tpu_torch.workload import tpch_queries as TQ
 from cockroach_tpu_torch.workload.tpch import TPCH as TTPCH
 
 from test_torch_sql import CAP, assert_same_result, check_oracle, sql_text
+from torch_threads import one_torch_thread  # noqa: F401
 
 READ_ONLY = ("this catalog is read-only (DDL/DML need a storage-backed "
              "session)")

@@ -51,6 +51,7 @@ from cockroach_tpu_torch.ops.sort import SortKey
 from cockroach_tpu_torch.util import circuit as tcircuit
 from cockroach_tpu_torch.util.mon import BytesMonitor
 from cockroach_tpu_torch.util.settings import Settings
+from torch_threads import one_torch_thread  # noqa: F401
 
 HOWS = ("inner", "left", "semi", "anti", "right", "outer")
 JAX_HOWS = ("inner", "left", "semi", "anti")

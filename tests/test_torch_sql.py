@@ -46,6 +46,7 @@ from cockroach_tpu_torch.sql.plan import TPCHCatalog as TCatalog
 from cockroach_tpu_torch.sql.plan import normalize as tnormalize
 from cockroach_tpu_torch.workload import tpch_queries as TQ
 from cockroach_tpu_torch.workload.tpch import TPCH as TTPCH
+from torch_threads import one_torch_thread  # noqa: F401
 
 TESTS = os.path.dirname(os.path.abspath(__file__))
 CAP = 1 << 14

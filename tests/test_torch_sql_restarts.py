@@ -25,6 +25,7 @@ from cockroach_tpu_torch.sql.plan import TPCHCatalog as TCatalog
 from cockroach_tpu_torch.sql.session import Session, SQLError
 from cockroach_tpu_torch.workload import tpch_queries as TQ
 from cockroach_tpu_torch.workload.tpch import TPCH as TTPCH
+from torch_threads import one_torch_thread  # noqa: F401
 
 SF = 0.1
 CAP = 1 << 17

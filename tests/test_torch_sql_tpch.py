@@ -16,6 +16,7 @@ from cockroach_tpu_torch.sql.plan import TPCHCatalog as TCatalog
 from cockroach_tpu_torch.workload.tpch import TPCH as TTPCH
 
 from test_torch_sql import CAP, assert_same_result, check_oracle, sql_text
+from torch_threads import one_torch_thread  # noqa: F401
 
 QUERIES = [5, 10, 12, 16, 18]
 

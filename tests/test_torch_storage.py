@@ -33,6 +33,7 @@ from cockroach_tpu_torch.util.fault import (
     DurableFile, SimulatedCrash, corrupt_file, crash_point, tear_file,
 )
 from cockroach_tpu_torch.util.hlc import HLC, ManualClock, Timestamp
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TESTDATA = os.path.join(REPO, "tests", "testdata", "mvcc")
@@ -440,7 +441,7 @@ def test_maybe_fail_after_and_probability():
         fault.maybe_fail("scan.resident")
     reg.disarm("scan.resident")
     fault.maybe_fail("scan.resident")
-    assert fault.KNOWN_POINTS == ("scan.resident",)
+    assert fault.KNOWN_POINTS == ("scan.resident", "alter.backfill_chunk")
 
 
 def test_durable_file_torn_append(tmp_path):

@@ -44,6 +44,7 @@ from cockroach_tpu_torch.sql import plan as tplan
 from cockroach_tpu_torch.sql.bind import BindError as TBindError
 from cockroach_tpu_torch.sql.bind import run_sql as trun_sql
 from cockroach_tpu_torch.workload.tpch import TPCH as TTPCH
+from torch_threads import one_torch_thread  # noqa: F401
 
 FLOAT_RTOL = 1e-4
 STRINGS = np.array(["pear", "apple", "fig", "kiwi", "banana", "date"],

@@ -16,6 +16,7 @@ from cockroach_tpu_torch.ops.sort import range_top_k
 from cockroach_tpu_torch.storage import MVCCStore, NativeEngine
 from cockroach_tpu_torch.util.hlc import HLC, ManualClock
 from cockroach_tpu_torch.workload import ycsb
+from torch_threads import one_torch_thread  # noqa: F401
 
 N_RECORDS = 600
 K = 10
