@@ -227,14 +227,48 @@ Phases, each printed on lines of its own:
      every read after them equal to numpy; (f) the 35 files of
      tests/testdata/logic through sessions on CUDA (capacity 128), each
      block as the file expects.
-Then the whole run's seconds (`[14]`), one JSON line per query (Q1 and
+ 14. the lifecycle seams (run_phase14) at SF 1 on CUDA, through Sessions
+     over phase 11's TPC-H catalog (its images back in the cache; the
+     sessions share one prepared cache): (a) SQL Q1 cold and WARM_RUNS
+     prepared hits with `sql.trace.enabled` off, then on (its default):
+     each hit one replay with at most one sync and one K1 launch, K1
+     once in a traced replay, the session's own cost over collect
+     beside phase 11's, the root span's tree printed; (b) EXPLAIN
+     ANALYZE of Q1 and Q3 (span tree, digest at tier fused, operators)
+     and EXPLAIN ANALYZE (DEBUG)'s statement bundle, read back; (c)
+     statement_timeout 0.1 s over phase 11's window query of all of
+     lineitem: 57014 and the time from the deadline to the raise, then
+     the session's Q1 a replay with one sync and equal rows, no
+     prefetch thread alive, device memory within 64 MiB of before; (d)
+     the same statement in a thread, listed executing by a second
+     session's SHOW QUERIES and cancelled by its CANCEL QUERY: 57014 in
+     the first session, the cancel latency, SHOW QUERIES empty after;
+     (e) `sql.admission.session_slots` 1 with the slot held: a work
+     statement sheds with 53300, SET and SHOW pass; `admission_slots`
+     2: 4 threads of Q1, every result equal to the oracle and the flow
+     queue's used gauge never above 2; (g) chaos on the card, seeded:
+     Q1 under scan.transfer, scan.stack, fused.compile, fused.exec and
+     cache.insert, Q3 and Q18 under scan.transfer and fused.exec, at
+     probability 0.3, each a cold run bit-equal to its fault-free run
+     (a fired point shows a retry or a degradation); a forced fused
+     out-of-memory completes on the streaming tier; a RuntimeError
+     planted in the resident tier's visibility pass and fold propagates
+     with the table attached, an out-of-memory falls back to the host
+     walk and detaches; (f) crdb_internal.node_metrics shows the retry,
+     degradation and restart counters the phase moved, and a Q6 slowed
+     by an armed delay fault is flagged slow in
+     cluster_execution_insights and logged by the slow-query log (a
+     MemorySink on SQL_EXEC).
+Then the whole run's seconds (`[15]`), one JSON line per query (Q1 and
 phases 6 to 9), phase 10's JSON line, one `sql_<name>` JSON line per
-phase 11 record, phase 12's and phase 13's JSON lines, the JSON line of
+phase 11 record, phase 12's, phase 13's and phase 14's JSON lines, the
+JSON line of
 kernels (dense_sums' launches in the Q1 run, by path: Q1, Q12, Q4 and
 Q5, in the traced fused replays of Q1, Q4, Q5 and Q12, in the traced SQL
 replays of Q1 and Q12, with every trace's reading, in the MVCC runs of
-phase 12 and in the session's traced Q1 replays of phase 13, before and
-after the committed write; its
+phase 12, in the session's traced Q1 replays of phase 13, before and
+after the committed write, and in phase 14's traced session replays,
+`q1_traced_session`; its
 times at Q1's, Q4's and Q5's shapes and at the fused queries' shapes),
 the card line and, last, the result line.
 
@@ -249,7 +283,8 @@ cummax total and call count, and its ten longest device ops. Phase 9's
 traced replays go to DIR/<query>_fused_*, or without --profile to
 build/phase9_traces/; phase 11's to DIR/sql_* or build/phase11_traces/;
 phase 12's to DIR/q1_mvcc_fused_* or build/phase12_traces/; phase 13's
-to DIR/q1_session* or build/phase13_traces/.
+to DIR/q1_session* or build/phase13_traces/; phase 14's to
+DIR/q1_trace_* or build/phase14_traces/.
 """
 
 import argparse
@@ -4060,6 +4095,583 @@ def run_phase13(torch, gen, dev, q1_streaming, profile_dir, seed):
     return rec, k1
 
 
+# ----------------------------------------------------------- phase 14
+
+STATEMENT_TIMEOUT_S = 0.1
+CHAOS_PROB = 0.3
+CHAOS_Q1_POINTS = ("scan.transfer", "scan.stack", "fused.compile",
+                   "fused.exec", "cache.insert")
+CHAOS_JOIN_POINTS = ("scan.transfer", "fused.exec")
+ADMISSION_THREADS = 4
+ADMISSION_RUNS = 3
+DELAY_S = 0.3            # the armed delay fault of (f)
+LEAK_BYTES = 64 << 20    # device memory a cancelled statement may leave
+BUNDLE_MEMBERS = ["digest.json", "operators.json", "plan.txt", "stmt.sql",
+                  "trace.json", "trace.txt"]
+RESIDENT_PLANT_ROWS = 20_000
+
+
+def prefetch_threads() -> list:
+    """The scan prefetch producers alive (exec/operators.py _prefetch)."""
+    import threading
+
+    return [t for t in threading.enumerate()
+            if "produce_tracked" in t.name and t.is_alive()]
+
+
+def firing_seed(start: int, p: float) -> int:
+    """The first seed from `start` whose fault registry fires on a
+    point's first pass at probability `p` (util/fault.py draws one
+    random() per pass), so that every chaos case shows its point
+    firing; later passes draw as the seed goes."""
+    import random
+
+    seed = start
+    while random.Random(seed).random() >= p:
+        seed += 1
+    return seed
+
+
+def delayed_retryable(delay: float):
+    """A fault factory: each fire stalls the statement's thread `delay`
+    seconds, then is a transient error (one in-place retry)."""
+
+    def make():
+        time.sleep(delay)
+        return ConnectionError("transfer failed")
+
+    return make
+
+
+def bit_equal_results(label: str, want: dict, got: dict) -> None:
+    """Bit-for-bit equality of two collect results (equal_results
+    compares values, where -0.0 equals 0.0)."""
+    if list(got) != list(want):
+        raise SystemExit(f"{label}: columns {list(got)} != {list(want)}")
+    for k in want:
+        a, b = np.asarray(want[k]), np.asarray(got[k])
+        if a.dtype == object or b.dtype == object:
+            same = a.shape == b.shape and list(a) == list(b)
+        else:
+            same = (a.dtype == b.dtype and a.shape == b.shape
+                    and a.tobytes() == b.tobytes())
+        if not same:
+            raise SystemExit(f"{label}: column {k} differs from the "
+                             f"fault-free run")
+
+
+def resident_plants(torch, dev) -> dict:
+    """Queue 3's open check on the card: a RuntimeError planted in the
+    resident tier's visibility pass or fold, read through the
+    `scan.resident` seam, propagates and leaves the table attached; an
+    out-of-memory there falls back to the host walk and detaches it."""
+    from cockroach_tpu_torch.ops import mvcc_filter as mf
+    from cockroach_tpu_torch.storage import resident
+    from cockroach_tpu_torch.storage.engine import open_engine
+    from cockroach_tpu_torch.storage.mvcc import MVCCStore
+    from cockroach_tpu_torch.util.hlc import HLC, ManualClock, Timestamp
+
+    tid, n = 3, RESIDENT_PLANT_ROWS
+    out = {}
+    for pass_name in ("visible_image", "fold_versions"):
+        for exc, msg, falls_back in (
+                (RuntimeError, "planted pass failure", False),
+                (torch.cuda.OutOfMemoryError, "CUDA out of memory (planted)",
+                 True)):
+            resident.reset()
+            store = MVCCStore(engine=open_engine(),
+                              clock=HLC(ManualClock(1000)), device=dev)
+            for pk in range(n):
+                store.put(tid, pk, [pk, 0], ts=Timestamp(100, 0))
+            if not store.make_resident(tid, 2):
+                raise SystemExit("resident plant: the table did not attach")
+            rt = resident.lookup(store, tid)
+            store.put(tid, n + 1, [n + 1, 0], ts=Timestamp(150, 0))
+            want = list(range(n)) + [n + 1]
+            real = getattr(mf, pass_name)
+
+            def planted(*a, **kw):
+                raise exc(msg)
+
+            def rows():
+                chunks = list(store.scan_chunks(tid, 2, 1 << 16,
+                                                ts=Timestamp(200, 0)))
+                return np.concatenate([c["f0"] for c in chunks]).tolist()
+
+            from cockroach_tpu_torch.exec import stats
+
+            setattr(mf, pass_name, planted)
+            try:
+                with stats.query_stats() as col:
+                    try:
+                        got = rows()
+                        raised = None
+                    except Exception as e:  # noqa: BLE001
+                        got, raised = None, e
+            finally:
+                setattr(mf, pass_name, real)
+            attached = resident.lookup(store, tid) is rt
+            fallbacks = col.stages["scan.resident_fallback"].events \
+                if "scan.resident_fallback" in col.stages else 0
+            if falls_back:
+                ok = (raised is None and got == want and not attached
+                      and fallbacks == 1)
+            else:
+                ok = (isinstance(raised, exc) and msg in str(raised)
+                      and attached and rows() == want)
+            label = f"{pass_name}/{exc.__name__}"
+            if not ok:
+                raise SystemExit(f"resident plant {label}: raised "
+                                 f"{raised!r}, attached {attached}, "
+                                 f"fallbacks {fallbacks}")
+            out[label] = {"propagated": raised is not None,
+                          "attached": attached, "fallbacks": fallbacks}
+            resident.reset()
+    return out
+
+
+def run_phase14(torch, gen, dev, records11, profile_dir):
+    """The lifecycle seams at SF 1 on CUDA, through Sessions over phase
+    11's TPC-H catalog (the scan-image cache holds its images), every
+    reading held to its oracle: (a) SQL Q1 cold and WARM_RUNS prepared
+    hits with `sql.trace.enabled` off and on (its default): each hit one
+    replay and at most one sync, K1 once in a traced replay, the
+    session's own cost beside phase 11's, the root span's tree; (b)
+    EXPLAIN ANALYZE of Q1 and Q3 (span tree, digest, operators) and
+    EXPLAIN ANALYZE (DEBUG)'s bundle, read back; (c) statement_timeout
+    0.1 s over the window query of all of lineitem (57014, the deadline
+    to the raise, the session's next Q1, no prefetch thread, device
+    memory back within LEAK_BYTES); (d) the same statement in a thread,
+    listed by another session's SHOW QUERIES and cancelled by its CANCEL
+    QUERY (57014, the latency); (e) session admission (53300 with the
+    control heads passing) and flow admission at 2 slots under 4 threads
+    of Q1; (g) chaos on the card (Q1 under five points, Q3 and Q18 under
+    two, at probability 0.3, seeded; a forced fused out-of-memory) and
+    the resident passes' planted faults; (f) crdb_internal.node_metrics,
+    an insight and a slow-query log line for a statement slowed by an
+    armed delay fault. -> (the JSON record, K1's launches per traced
+    session replay)."""
+    import threading
+    import zipfile
+    from collections import OrderedDict
+
+    from cockroach_tpu_torch.exec import stats
+    from cockroach_tpu_torch.exec.operators import collect
+    from cockroach_tpu_torch.exec.scan_cache import scan_image_cache
+    from cockroach_tpu_torch.exec.spill import host_spill_monitor
+    from cockroach_tpu_torch.server.registry import default_query_registry
+    from cockroach_tpu_torch.sql.insights import default_insights
+    from cockroach_tpu_torch.sql.session import (
+        SLOW_QUERY_LATENCY, STATEMENT_TIMEOUT, Session, SQLError,
+    )
+    from cockroach_tpu_torch.sql.sqlstats import fingerprint
+    from cockroach_tpu_torch.util import admission, circuit, tracing
+    from cockroach_tpu_torch.util import log as ulog
+    from cockroach_tpu_torch.util.fault import registry as faults
+    from cockroach_tpu_torch.util.metric import default_registry
+    from cockroach_tpu_torch.util.settings import Settings
+    from cockroach_tpu_torch.workload import tpch_queries as tq
+
+    print(f"[14] the lifecycle seams: SF {SF}, capacity {CAPACITY}, "
+          f"Sessions over the TPC-H catalog on {dev}", flush=True)
+    t_phase = time.perf_counter()
+    st = Settings()
+    metrics = default_registry()
+    qreg = default_query_registry()
+    cat = pregenerated_catalog(gen)
+    # the sessions of this catalog share one prepared cache, so one
+    # operator tree and one fused runner, whose lock serializes replays
+    cat.shared_prepared = (OrderedDict(), threading.Lock())
+    session = Session(cat, capacity=CAPACITY, device=dev)
+    rf_names = gen.schema("lineitem").dicts["l_returnflag"]
+    ls_names = gen.schema("lineitem").dicts["l_linestatus"]
+    q1_oracle = tq.q1_oracle(gen)
+    q1 = sql_text("q1")
+    trace_dir = profile_dir or os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "build", "phase14_traces")
+    os.makedirs(trace_dir, exist_ok=True)
+    rec: dict = {"card": card_line()}
+
+    def counter(name):
+        return metrics.counter(name).value()
+
+    start = {n: counter(n) for n in (
+        "sql_resilience_retries_total", "sql_resilience_degradations_total",
+        "sql_flow_restarts_total")}
+
+    # ---- (a) seams at their defaults, tracing off and on
+    res, cold, _y, _e, _p, _l = session_run(torch, session, q1)
+    check_q1(res, q1_oracle, rf_names, ls_names)
+    k1_traced = []
+    rec["a"] = {"cold_s": cold}
+    for label, on in (("trace_off", False), ("trace_on", True)):
+        st.set(tracing.TRACE_ENABLED, on)
+        warm, syncs = [], []
+        for i in range(WARM_RUNS):
+            res, dt, n_sync, ev, parses, launches = session_run(
+                torch, session, q1)
+            check_q1(res, q1_oracle, rf_names, ls_names)
+            check_warm_hit(f"[14] q1 {label} warm {i + 1}",
+                           session._prepared[q1].op._fused_runner, ev,
+                           parses, n_sync)
+            if launches.get("dense_sums") != FUSED_K1["q1"]:
+                raise SystemExit(f"[14] q1 {label}: launches {launches}")
+            warm.append(dt)
+            syncs.append(n_sync)
+        op = session._prepared[q1].op
+        direct = []
+        for _ in range(WARM_RUNS):
+            t0 = time.perf_counter()
+            collect(op, device=dev)
+            direct.append(time.perf_counter() - t0)
+        reading = traced_replay_reading(
+            torch, session, q1, os.path.join(trace_dir, f"q1_{label}"))
+        if reading["dense_sums"] != FUSED_K1["q1"] or \
+                reading["mode"] != WARM_MODE:
+            raise SystemExit(f"[14] q1 {label}: traced replay {reading}")
+        k1_traced.append(reading["dense_sums"])
+        own = statistics.median(warm) - statistics.median(direct)
+        p11 = records11["q1"]["warm_s"] - records11["q1"]["direct_s"]
+        print(f"  (a) q1 {label}: warm median "
+              f"{statistics.median(warm) * 1e3:.3f} ms of "
+              f"{[round(w * 1e3, 3) for w in warm]}, syncs {syncs}; direct "
+              f"collect {statistics.median(direct) * 1e3:.3f} ms; the "
+              f"session's own cost {own * 1e3:.3f} ms (phase 11, this run: "
+              f"{p11 * 1e3:.3f} ms); traced replay dense_sums "
+              f"{reading['dense_sums']}, mode {reading['mode']}",
+              flush=True)
+        rec["a"][label] = {"warm_s": warm, "direct_s": direct,
+                           "own_cost_s": own, "phase11_own_cost_s": p11,
+                           "syncs": syncs, "k1_traced": reading}
+    # the root span of one warm execute (tracing on, its default)
+    with tracing.tracer().span("phase14") as outer:
+        session.execute(q1)
+    root = outer.children[0]
+    names = [s.name for s in root.walk()]
+    if root.name != "session.execute" or "flow.fused" not in names or \
+            "fused.exec" not in names or outer.tags.get("tier") != "fused":
+        raise SystemExit(f"[14] the warm execute's span tree: {names}, "
+                         f"root tags {outer.tags}")
+    print("  (a) the root span of a warm execute:")
+    for ln in root.render().splitlines():
+        print(f"    {ln}")
+    rec["a"]["span_names"] = names
+
+    # ---- (b) EXPLAIN ANALYZE and the statement bundle
+    for name in ("q1", "q3"):
+        kind, lines, _ = session.execute("explain analyze " + sql_text(name))
+        text = "\n".join(lines)
+        need = ("query:", "flow.fused", "fused.exec", "operators:",
+                "resilience: tier=fused")
+        missing = [n for n in need if n not in text]
+        if kind != "explain" or missing:
+            raise SystemExit(f"[14] explain analyze {name}: missing "
+                             f"{missing}: {lines}")
+        print(f"  (b) EXPLAIN ANALYZE {name}:")
+        for ln in lines:
+            print(f"    {ln}")
+    kind, lines, _ = session.execute("explain analyze (debug) " + q1)
+    path = lines[-1].split(": ", 1)[1]
+    with zipfile.ZipFile(path) as zf:
+        members = sorted(zf.namelist())
+        digest = json.loads(zf.read("digest.json"))
+        trace = json.loads(zf.read("trace.json"))
+    os.remove(path)
+    if members != BUNDLE_MEMBERS or digest.get("tier") != "fused" or \
+            trace.get("name") != "query":
+        raise SystemExit(f"[14] statement bundle: {members}, digest "
+                         f"{digest}, trace root {trace.get('name')}")
+    print(f"  (b) EXPLAIN ANALYZE (DEBUG) q1: bundle {members}, digest "
+          f"{digest}", flush=True)
+    rec["b"] = {"bundle": members, "digest": digest}
+
+    # ---- (c) statement_timeout over the window query of all of lineitem
+    wsql = WINDOW_SQL_ALL
+    session.execute(wsql)  # cold: the fused tracer declines it
+    t0 = time.perf_counter()
+    session.execute(wsql)
+    window_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    mem_before = torch.cuda.memory_allocated(dev)
+    # the cluster default, not SET: a SET clears the prepared cache, and
+    # the next Q1 must be a replay of the kept tree
+    st.set(STATEMENT_TIMEOUT, STATEMENT_TIMEOUT_S)
+    t0 = time.perf_counter()
+    try:
+        session.execute(wsql)
+        raise SystemExit("[14] (c): the window query outran its "
+                         "statement_timeout without 57014")
+    except SQLError as e:
+        if e.pgcode != "57014":
+            raise
+    finally:
+        st.set(STATEMENT_TIMEOUT, 0.0)
+    timeout_latency = time.perf_counter() - (t0 + STATEMENT_TIMEOUT_S)
+    torch.cuda.synchronize()
+    leak = torch.cuda.memory_allocated(dev) - mem_before
+    alive = prefetch_threads()
+    if alive or leak > LEAK_BYTES or qreg.query_count() \
+            or host_spill_monitor().used:
+        raise SystemExit(f"[14] (c): after 57014: prefetch threads {alive}, "
+                         f"device memory {leak} bytes over, registry "
+                         f"{qreg.query_count()}, host spill "
+                         f"{host_spill_monitor().used}")
+    res, _dt, n_sync, ev, parses, _l = session_run(torch, session, q1)
+    check_q1(res, q1_oracle, rf_names, ls_names)
+    check_warm_hit("[14] (c) q1 after 57014",
+                   session._prepared[q1].op._fused_runner, ev, parses,
+                   n_sync)
+    print(f"  (c) statement_timeout {STATEMENT_TIMEOUT_S} s over the window "
+          f"query (warm {window_s * 1e3:.1f} ms): 57014 "
+          f"{timeout_latency * 1e3:.1f} ms after the deadline; then q1 a "
+          f"replay with {n_sync} sync, equal rows; prefetch threads 0; "
+          f"device memory {leak} bytes from before", flush=True)
+    rec["c"] = {"window_warm_s": window_s,
+                "deadline_to_raise_s": timeout_latency,
+                "device_bytes_after": leak}
+
+    # ---- (d) SHOW QUERIES and CANCEL QUERY from a second session
+    other = Session(cat, capacity=CAPACITY, device=dev)
+    box: dict = {}
+
+    def long_statement():
+        try:
+            session.execute(wsql)
+            box["err"] = None
+        except SQLError as e:
+            box["err"], box["t_raise"] = e.pgcode, time.perf_counter()
+        except BaseException as e:  # noqa: BLE001
+            box["err"] = repr(e)
+
+    th = threading.Thread(target=long_statement)
+    th.start()
+    qid, listed, deadline = None, None, time.monotonic() + 60
+    while qid is None and time.monotonic() < deadline and th.is_alive():
+        _, q, _ = other.execute("show queries")
+        for i, s, ph in zip(q["query_id"], q["sql"], q["phase"]):
+            if s == wsql[:200] and ph == "executing":
+                qid, listed = int(i), list(zip(q["sql"], q["phase"]))
+        if qid is None:
+            time.sleep(0.005)
+    if qid is None:
+        th.join(60)
+        raise SystemExit(f"[14] (d): SHOW QUERIES never listed the "
+                         f"statement executing ({box})")
+    t_cancel = time.perf_counter()
+    other.execute(f"cancel query {qid}")
+    th.join(120)
+    if th.is_alive() or box.get("err") != "57014":
+        raise SystemExit(f"[14] (d): CANCEL QUERY gave {box}")
+    cancel_latency = box["t_raise"] - t_cancel
+    _, q, _ = other.execute("show queries")
+    rest = [s for s in q["sql"] if s != "show queries"]
+    if rest or prefetch_threads():
+        raise SystemExit(f"[14] (d): after the cancel SHOW QUERIES lists "
+                         f"{rest}, prefetch threads {prefetch_threads()}")
+    print(f"  (d) SHOW QUERIES listed query {qid} executing; CANCEL QUERY "
+          f"-> 57014 in the first session {cancel_latency * 1e3:.1f} ms "
+          f"later; SHOW QUERIES afterwards lists only itself", flush=True)
+    rec["d"] = {"cancel_latency_s": cancel_latency, "query_id": qid}
+
+    # ---- (e) admission
+    st.set(admission.SESSION_SLOTS, 1)
+    st.set(admission.SESSION_QUEUE_TIMEOUT, 0.05)
+    sq = admission.session_queue()
+    sq.acquire()
+    try:
+        session.execute("set statement_timeout = 0")
+        session.execute("show statement_timeout")
+        try:
+            session.execute(q1)
+            raise SystemExit("[14] (e): a work statement ran with the only "
+                             "session slot held")
+        except SQLError as e:
+            if e.pgcode != "53300":
+                raise
+    finally:
+        sq.release()
+        st.set(admission.SESSION_SLOTS, 0)
+    if sq.used.value() or sq.waiting.value():
+        raise SystemExit("[14] (e): a session slot leaked")
+    session.execute("set admission_slots = 2")
+    # a SET clears the shared prepared cache: one execute keeps the tree
+    # (and captures its graph) before the threads, so that they all
+    # replay one graph under its runner's lock
+    session.execute(q1)
+    fq = admission.flow_queue()
+    sessions = [Session(cat, capacity=CAPACITY, device=dev)
+                for _ in range(ADMISSION_THREADS)]
+    errors, peak, done = [], [0], threading.Event()
+
+    def sample():
+        while not done.is_set():
+            peak[0] = max(peak[0], int(fq.used.value()))
+            time.sleep(0.0002)
+
+    def worker(s):
+        try:
+            for _ in range(ADMISSION_RUNS):
+                _k, res, _s = s.execute(q1)
+                check_q1(res, q1_oracle, rf_names, ls_names)
+        except BaseException as e:  # noqa: BLE001
+            errors.append(repr(e))
+
+    sampler = threading.Thread(target=sample)
+    sampler.start()
+    t0 = time.perf_counter()
+    workers = [threading.Thread(target=worker, args=(s,)) for s in sessions]
+    for w in workers:
+        w.start()
+    for w in workers:
+        w.join(120)
+    adm_s = time.perf_counter() - t0
+    done.set()
+    sampler.join()
+    session.execute("set admission_slots = 0")
+    if errors or peak[0] > 2 or fq.used.value() or any(
+            w.is_alive() for w in workers):
+        raise SystemExit(f"[14] (e): errors {errors}, flow slots peak "
+                         f"{peak[0]}, held {fq.used.value()}")
+    print(f"  (e) session admission: 53300 with the only slot held, SET "
+          f"and SHOW passed; flow admission at 2 slots: "
+          f"{ADMISSION_THREADS} threads x {ADMISSION_RUNS} q1, every result "
+          f"equal to the oracle, slots used peak {peak[0]}, "
+          f"{adm_s:.2f} s", flush=True)
+    rec["e"] = {"flow_slots_peak": peak[0], "threads_s": adm_s}
+
+    # ---- (g) chaos on the card, seeded; the images held aside
+    cached = scan_image_cache().snapshot()
+    builders = {"q1": lambda: tq.q1(gen, CAPACITY, catalog=cat),
+                "q3": lambda: tq.q3(gen, CAPACITY, catalog=cat),
+                "q18": lambda: tq.q18(gen, Q18_THRESHOLD, CAPACITY,
+                                      catalog=cat)}
+
+    def fresh(name):
+        scan_image_cache().clear()
+        flow = builders[name]()
+        make_resident(flow)
+        return flow
+
+    chaos = {}
+    try:
+        baseline = {n: collect(fresh(n), device=dev) for n in builders}
+        cases = [("q1", p) for p in CHAOS_Q1_POINTS] + [
+            (n, p) for n in ("q3", "q18") for p in CHAOS_JOIN_POINTS]
+        for i, (name, point) in enumerate(cases):
+            circuit.reset_all()
+            flow = fresh(name)
+            reg = faults()
+            reg.set_seed(firing_seed(1000 + 100 * i, CHAOS_PROB))
+            reg.arm(point, probability=CHAOS_PROB)
+            r0, d0 = (counter("sql_resilience_retries_total"),
+                      counter("sql_resilience_degradations_total"))
+            t0 = time.perf_counter()
+            try:
+                got = collect(flow, device=dev)
+            finally:
+                fires = reg.fires(point)
+                reg.disarm(point)
+            dt = time.perf_counter() - t0
+            retries = counter("sql_resilience_retries_total") - r0
+            degr = counter("sql_resilience_degradations_total") - d0
+            bit_equal_results(f"[14] (g) {name} under {point}",
+                              baseline[name], got)
+            if not fires or (point != "cache.insert"
+                             and retries + degr < 1):
+                raise SystemExit(f"[14] (g) {name} {point}: {fires} fires, "
+                                 f"{retries} retries, {degr} degradations")
+            chaos[f"{name}/{point}"] = {"fires": fires, "retries": retries,
+                                        "degradations": degr, "s": dt}
+        print(f"  (g) chaos at p={CHAOS_PROB}, each result bit-equal to its "
+              f"fault-free run: " + "; ".join(
+                  f"{k} {v['fires']} fires {v['retries']} retries "
+                  f"{v['degradations']} degradations"
+                  for k, v in chaos.items()), flush=True)
+        # a forced fused out-of-memory completes on a lower rung
+        circuit.reset_all()
+        faults().arm("fused.exec", probability=1.0,
+                     make=lambda: torch.cuda.OutOfMemoryError(
+                         "CUDA out of memory (injected)"))
+        try:
+            with stats.query_stats() as col:
+                got = collect(builders["q1"](), device=dev)
+        finally:
+            faults().disarm()
+            circuit.reset_all()
+        bit_equal_results("[14] (g) q1 under a forced fused OOM",
+                          baseline["q1"], got)
+        if "resilience.degrade.fused" not in col.stages:
+            raise SystemExit(f"[14] (g) forced OOM: {sorted(col.stages)}")
+        print("  (g) a forced fused OOM: degraded to the streaming tier, "
+              "equal rows", flush=True)
+    finally:
+        scan_image_cache().clear()
+        scan_image_cache().restore(cached)
+        del cached
+    plants = resident_plants(torch, dev)
+    print(f"  (g) resident passes on the card: {plants}", flush=True)
+    rec["g"] = {"chaos": chaos, "resident_plants": plants}
+
+    # ---- (f) node_metrics, an insight and the slow-query log
+    # a fresh Q18 streaming flow restarts once at SF 1 (phase 6)
+    collect(tq.q18(gen, Q18_THRESHOLD, CAPACITY, catalog=cat), device=dev,
+            fuse=False)
+    q6 = sql_text("q6")
+    session.execute(q6)
+    session.execute(q6)
+    ins = default_insights()
+    ins.reset()
+    for _ in range(6):  # a healthy baseline for its fingerprint
+        ins.observe(q6, 0.002)
+    lg = ulog.get_logger()
+    sink = ulog.MemorySink()
+    lg.add_sink(ulog.Channel.SQL_EXEC, sink)
+    st.set(SLOW_QUERY_LATENCY, DELAY_S / 2)
+    faults().arm("fused.exec", after=0, make=delayed_retryable(DELAY_S))
+    try:
+        t0 = time.perf_counter()
+        session.execute(q6)
+        slow_s = time.perf_counter() - t0
+    finally:
+        faults().disarm()
+        st.set(SLOW_QUERY_LATENCY, 0.0)
+        lg._sinks[ulog.Channel.SQL_EXEC].remove(sink)
+    _, res, schema = session.execute(
+        "select fingerprint, kinds, elapsed_s from "
+        "crdb_internal.cluster_execution_insights")
+    fdict = schema.dicts[schema.field("fingerprint").dict_ref]
+    kdict = schema.dicts[schema.field("kinds").dict_ref]
+    flagged = [str(kdict[int(k)]) for f, k in zip(res["fingerprint"],
+                                                   res["kinds"])
+               if str(fdict[int(f)]) == fingerprint(q6)]
+    slow_lines = [e for e in sink.entries
+                  if e.get("event") == "slow_query" and q6 in e["sql"]]
+    _, res, schema = session.execute(
+        "select name, value from crdb_internal.node_metrics where "
+        "name = 'sql_resilience_retries_total' or name = "
+        "'sql_resilience_degradations_total' or name = "
+        "'sql_flow_restarts_total'")
+    ndict = schema.dicts[schema.field("name").dict_ref]
+    node = {str(ndict[int(c)]): float(v)
+            for c, v in zip(res["name"], res["value"])}
+    moved = {n: node.get(n, 0.0) - start[n] for n in start}
+    if not any("slow" in k for k in flagged) or not slow_lines or \
+            any(v < 1 for v in moved.values()) or \
+            any(node[n] != counter(n) for n in start):
+        raise SystemExit(f"[14] (f): insights {flagged}, slow lines "
+                         f"{len(slow_lines)}, node_metrics {node}, moved "
+                         f"{moved}")
+    print(f"  (f) crdb_internal.node_metrics {node} (this phase moved "
+          f"{moved}); the delayed q6 ({slow_s * 1e3:.1f} ms) flagged "
+          f"{flagged} in cluster_execution_insights and logged "
+          f"{len(slow_lines)} slow_query line", flush=True)
+    rec["f"] = {"node_metrics": node, "moved": moved, "insights": flagged,
+                "slow_s": slow_s}
+    rec["s"] = time.perf_counter() - t_phase
+    print(f"  phase 14: {rec['s']:.1f} s", flush=True)
+    return rec, k1_traced
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", metavar="DIR",
@@ -4248,6 +4860,9 @@ def main() -> int:
                                         args.profile, args.seed)
     scan_image_cache().restore(cached_images)
     del cached_images
+    # ---- 14. the lifecycle seams, over phase 11's images
+    records14, k1_traced_session = run_phase14(torch, gen, dev, records11,
+                                               args.profile)
 
     kernels = [{
         "name": "dense_sums",
@@ -4262,7 +4877,8 @@ def main() -> int:
             **{f"{q}_fused": (q1_record if q == "q1" else query_records[q])[
                 "fused_k1_traced"] for q in FUSED_K1},
             **{f"{q}_sql": n for q, n in k1_sql.items()},
-            **k1_mvcc, **k1_session},
+            **k1_mvcc, **k1_session,
+            "q1_traced_session": k1_traced_session},
         "sql_traces": {q: records11[q]["k1_traces"] for q in k1_sql},
         "max_abs_err": worst,
         "ms": kernel_ms,
@@ -4272,7 +4888,7 @@ def main() -> int:
         "library_ms": library_ms,
         "at_shapes": {"q1": q1_shape, **k1_shapes, **fused_shapes},
     }]
-    print(f"[14] whole run {time.perf_counter() - t_start:.1f} s",
+    print(f"[15] whole run {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"q1": q1_record}))
     for name in PHASE6 + PHASE7 + PHASE8:
@@ -4282,6 +4898,7 @@ def main() -> int:
         print(json.dumps({f"sql_{name}": rec}))
     print(json.dumps({"phase12": records12}))
     print(json.dumps({"phase13": records13}))
+    print(json.dumps({"phase14": records14}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

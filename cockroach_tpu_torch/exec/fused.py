@@ -49,6 +49,24 @@ A WindowOp materializes its sorted input and runs the window body
 reads come from the sort's cache, filled by the eager warm-up and held by
 the graph.
 
+The lifecycle seams sit outside the capture region: before a config's
+first run the fault point `fused.compile` (under `with_retry`), and
+before every run the statement's cancel checkpoint and the fault point
+`fused.exec` (under `with_retry`); nothing between
+`torch.cuda.graph(...)` and its exit may raise, read a device value or
+write a registry. The spans: `fused.prime` (or the record
+`prime.skipped`), `fused.compile` (the eager warm-up and the capture on
+CUDA; on an eager device nothing compiles, and the span holds only the
+seam), `fused.exec` (the replay or the eager run, with its readback)
+and the record `fused.fallback`; a fallback also logs a SQL_EXEC line.
+A runner's first run observes `sql_first_execution_seconds` (prime,
+capture and the first replay on CUDA). A replay cannot be interrupted,
+so a cancel lands after the replay in flight. Device memory running out
+inside a run propagates to exec/operators.py run_flow, whose ladder
+steps down to the streaming tier (`resilience.degrade.fused`), where the
+JAX runner hands the run to the streaming operators itself
+(`fused.fallback_oom`).
+
 Not ported yet: `compile_via_vault` and `aot_compile` (the plan vault)
 and the serving runners (ROADMAP.md queue 1, item 8); neither exists in
 the port, so `_validate` refuses any operator it does not know, the
@@ -86,7 +104,10 @@ from cockroach_tpu_torch.ops.join import (
 from cockroach_tpu_torch.ops.sort import (
     hold_rank_tables, sort_batch, top_k_batch,
 )
+from cockroach_tpu_torch.util import cancel as _cancel
 from cockroach_tpu_torch.util import retry
+from cockroach_tpu_torch.util import tracing as _tracing
+from cockroach_tpu_torch.util.fault import maybe_fail
 
 
 class Unsupported(Exception):
@@ -775,6 +796,8 @@ class FusedRunner:
         # what the last run did: "replay" | "capture" | "eager", its
         # routes, and (after a capture) the graph's numbers
         self.last: dict = {}
+        self._compiled: set = set()   # config keys that have run once
+        self._served_once = False     # sql_first_execution_seconds
 
     # -- keys ----------------------------------------------------------------
 
@@ -833,9 +856,11 @@ class FusedRunner:
         vkey, images = self._warm_images(scans, device)
         if vkey is not None:
             stats.add("prime.skipped")
+            _tracing.record("prime.skipped", scans=len(scans))
             return images, vkey
         images = {}
-        with stats.timed("fused.prime"):
+        with _tracing.child_span("fused.prime", scans=len(scans)), \
+                stats.timed("fused.prime"):
             for sc in scans:
                 try:
                     image = sc.prime_image(device)
@@ -946,44 +971,85 @@ class FusedRunner:
         key = self._config_key(self.root, images)
         if key in self._unsupported:
             raise Unsupported("cached unsupported config")
+        capture = device.type == "cuda" and vkey is not None and (
+            self._graph is None or self._graph.key != (key, vkey))
         try:
-            if device.type != "cuda" or vkey is None:
-                with stats.timed("fused.exec"):
-                    prog = self._trace(images)
-                self.last = {"mode": "eager", "routes": prog.routes}
-                return self._readback(prog.packed), prog
-            g = self._graph
-            mode = "replay"
-            if g is None or g.key != (key, vkey):
-                g = self._capture((key, vkey), images, device)
-                mode = "capture"
-            self.last = {"mode": mode, "routes": g.prog.routes,
-                         "launches": dict(g.launches),
-                         "pool_bytes": g.pool_bytes,
-                         "capture_s": g.capture_s}
-            return self._replay(g), g.prog
+            if capture or key not in self._compiled:
+                with _tracing.child_span("fused.compile"):
+                    retry.with_retry(_compile_seam, name="fused.compile")
+                    if capture:
+                        self._capture((key, vkey), images, device)
+                self._compiled.add(key)
+            # the seams of the run: before the replay or the eager run,
+            # never inside a capture
+            retry.with_retry(_exec_seam, name="fused.exec")
+            with _tracing.child_span("fused.exec"):
+                if device.type != "cuda" or vkey is None:
+                    with stats.timed("fused.exec"):
+                        prog = self._trace(images)
+                    self.last = {"mode": "eager", "routes": prog.routes}
+                    return self._readback(prog.packed), prog
+                g = self._graph
+                self.last = {"mode": "capture" if capture else "replay",
+                             "routes": g.prog.routes,
+                             "launches": dict(g.launches),
+                             "pool_bytes": g.pool_bytes,
+                             "capture_s": g.capture_s}
+                return self._replay(g), g.prog
         except Unsupported:
             self._unsupported.add(key)
             raise
 
+    def _fallback(self, device, reason: str, detail: str = ""):
+        """Hand this run to the streaming operators."""
+        from cockroach_tpu_torch.util import log as _log
+
+        stats.add(f"fused.fallback_{reason}")
+        _tracing.record("fused.fallback", reason=reason,
+                        detail=detail[:80])
+        _log.get_logger().info(
+            _log.Channel.SQL_EXEC,
+            "fused fallback -> streaming ({}: {})", reason, detail)
+        return self.root.batches(device)
+
     def batches(self, device) -> Iterator[Batch]:
+        import time as _time
+
+        first = not self._served_once
+        t_first = _time.perf_counter()
         try:
             with self._mu:
                 images, vkey = self._prepare(device)
                 host, prog = self._execute(device, images, vkey)
+                # unpacked under the lock: the host buffer is the
+                # runner's, and the next run (another session's, when
+                # sessions share the prepared tree) overwrites it
+                batch = self._result(host, prog)
         except Unsupported as e:
             # this run's volume or shape is outside the fusion grammar
-            stats.add("fused.fallback_unsupported")
             self.last = {"mode": "streaming", "unsupported": str(e)}
-            yield from self.root.batches(device)
+            yield from self._fallback(device, "unsupported", str(e))
             return
-        batch = self._result(host, prog)
         if batch is None:
             # past the largest window the streaming operators deliver it
-            stats.add("fused.fallback_result")
             self.last = {"mode": "streaming", "result_overflow": True}
-            yield from self.root.batches(device)
+            yield from self._fallback(device, "result",
+                                      "result past the largest window")
             return
+        if first:
+            # the cold run of a prepared plan: prime, capture (or the
+            # first eager trace) and the first replay
+            self._served_once = True
+            dt = _time.perf_counter() - t_first
+            from cockroach_tpu_torch.util.metric import default_registry
+
+            default_registry().histogram(
+                "sql_first_execution_seconds",
+                "wall time of each prepared plan's first fused execution "
+                "(prime + capture or first trace + first run)"
+            ).observe(dt)
+            stats.add("fused.first_execution")
+            _tracing.record("first_execution", seconds=round(dt, 4))
         yield batch
 
     def _result(self, host: np.ndarray, prog: _Program) -> Optional[Batch]:
@@ -1006,6 +1072,15 @@ class FusedRunner:
         self._window.rows = rows
         self._graph = None
         raise FlowRestart(self._window)
+
+
+def _compile_seam() -> None:
+    maybe_fail("fused.compile")
+
+
+def _exec_seam() -> None:
+    _cancel.checkpoint()
+    maybe_fail("fused.exec")
 
 
 def try_compile(op: Operator) -> Optional[FusedRunner]:

@@ -59,6 +59,10 @@ from cockroach_tpu_torch.ops.expr import (
     Col, decimal_unscale, eval_expr, filter_mask,
 )
 from cockroach_tpu_torch.ops.sort import SortKey, sort_batch, top_k_batch
+from cockroach_tpu_torch.util import cancel as _cancel
+from cockroach_tpu_torch.util import retry as _retry
+from cockroach_tpu_torch.util import tracing as _tracing
+from cockroach_tpu_torch.util.fault import maybe_fail
 from cockroach_tpu_torch.util.settings import (
     HBM_CACHE_BUDGET, WORKMEM, Settings,
 )
@@ -132,11 +136,14 @@ def _prefetch(it: Iterator, device: torch.device, depth: int = 4
       fresh, and the caching host allocator keeps it until its copy has
       run.
     - The producer reports its stages into the consumer's per-query
-      stats collection.
-
-    Not ported yet: the cancel checkpoint of the consumer's poll and the
-    trace carrier, which wait for util/cancel.py and util/tracing.py
-    (ROADMAP.md queue 1, item 8)."""
+      stats collection, and continues the consumer's trace: its work is
+      a `scan.prefetch` span under the consumer's active span
+      (util/tracing.py from_carrier).
+    - The consumer polls the queue every 0.1 s and checkpoints the
+      statement's cancel context between polls (util/cancel.py), so a
+      cancel reaches a consumer waiting on a slow producer; the
+      `finally` then stops and joins the producer before the exception
+      leaves this generator."""
     import queue as _queue
     import threading
 
@@ -149,6 +156,9 @@ def _prefetch(it: Iterator, device: torch.device, depth: int = 4
     col = stats.query_active()
     stream = (torch.cuda.current_stream(device) if device.type == "cuda"
               else None)
+    # the producer's thread-local span stack is empty: hand it the
+    # active trace so its retries reach the recording
+    carrier = _tracing.tracer().carrier()
 
     def halted():
         return stop.is_set() or flow_stopper().should_stop
@@ -183,7 +193,9 @@ def _prefetch(it: Iterator, device: torch.device, depth: int = 4
         try:
             with flow_stopper().task("scan-prefetch"), \
                     stats.query_stats(col) if col is not None \
-                    else contextlib.nullcontext():
+                    else contextlib.nullcontext(), \
+                    _tracing.tracer().from_carrier(carrier, "scan.prefetch") \
+                    if carrier is not None else contextlib.nullcontext():
                 if stream is None:
                     produce()
                     return
@@ -200,7 +212,14 @@ def _prefetch(it: Iterator, device: torch.device, depth: int = 4
     t.start()
     try:
         while True:
-            item = q.get()
+            # timeout-poll instead of a bare blocking get: a cancel must
+            # reach a consumer stuck behind a stalled producer (the
+            # checkpoint is a no-op when no statement is active here)
+            try:
+                item = q.get(timeout=0.1)
+            except _queue.Empty:
+                _cancel.checkpoint()
+                continue
             if item is _END:
                 if err:
                     raise err[0]
@@ -437,8 +456,13 @@ class ScanOp(Operator):
                 with stats.timed("scan.pack", rows=min(n - a, self.capacity)):
                     m = pack_into(host.numpy(), piece, self.schema,
                                   self.capacity)
+
+                def transfer(host=host):
+                    maybe_fail("scan.transfer")
+                    return host.to(device, non_blocking=pin)
+
                 with stats.timed("scan.transfer", bytes=self._nbytes):
-                    buf = host.to(device, non_blocking=pin)
+                    buf = _retry.with_retry(transfer, name="scan.transfer")
                 yield buf, m
 
     def _pin(self, device: torch.device, pieces: list, acct) -> None:
@@ -453,7 +477,11 @@ class ScanOp(Operator):
         except BudgetExceededError:
             acct.close()
             return
-        image = self._stack(device, pieces)
+        try:
+            image = self._stack(device, pieces)
+        except BaseException:
+            acct.close()
+            raise
         if self.cache_key is not None:
             from cockroach_tpu_torch.exec.scan_cache import scan_image_cache
 
@@ -468,12 +496,19 @@ class ScanOp(Operator):
         """One ScanImage of a pass's (buffer, live rows) pieces."""
         ms_host = tuple(m for _, m in pieces)
         pin = device.type == "cuda"
-        with stats.timed("scan.stack", bytes=len(pieces) * self._nbytes):
+
+        def stack():
+            maybe_fail("scan.stack")
             bufs = torch.stack([b for b, _ in pieces])
             # a pinned source keeps the copy from waiting on the queue
             ms = torch.tensor(ms_host, dtype=torch.int32)
             ms = (ms.pin_memory() if pin else ms).to(device,
                                                      non_blocking=pin)
+            return bufs, ms
+
+        with _tracing.child_span("scan.stack", chunks=len(pieces)), \
+                stats.timed("scan.stack", bytes=len(pieces) * self._nbytes):
+            bufs, ms = _retry.with_retry(stack, name="scan.stack")
         return ScanImage(bufs, ms, ms_host)
 
     def evict(self):
@@ -1557,29 +1592,52 @@ def _clamp_workmem_for_spill(op: Operator) -> Callable[[], None]:
 
 
 def _run_tier(driver, reset: Callable[[], None],
-              consume: Callable[[Batch], None], device: torch.device) -> None:
+              consume: Callable[[Batch], None], device: torch.device,
+              reg) -> None:
     """Drive one ladder tier to completion: the FlowRestart widening loop
-    (at most MAX_RESTARTS restarts, each counted under the stats stage
-    `flow.restart`), plus in-place retries of transient (RETRYABLE)
-    faults under the sql.resilience backoff policy. RESOURCE and TERMINAL
+    (at most MAX_RESTARTS restarts, each counted in the stats stage
+    `flow.restart`, the counter `sql_flow_restarts_total`, a trace record
+    and a SQL_EXEC log line), plus in-place retries of transient
+    (RETRYABLE) faults under the sql.resilience backoff policy. The
+    statement's cancel context is checkpointed before each attempt,
+    before each batch and after the last (where the JAX driver has none:
+    the port's device work is waited on in `consume`), and before each
+    backoff. RESOURCE and TERMINAL
     errors propagate to the ladder, which decides whether a cheaper tier
     exists."""
-    from cockroach_tpu_torch.util import retry as _retry
+    from cockroach_tpu_torch.util import log as _log
 
     opts = _retry.options_from_settings()
     backoffs = opts.backoffs()
     restarts = 0
     while True:
+        _cancel.checkpoint()
         reset()
         try:
             for b in driver.batches(device):
+                _cancel.checkpoint()
                 consume(b)
+            b = None  # the last batch's device memory ends with the run
+            # the device work of a batch is waited on inside `consume`
+            # (its readback), after the checkpoint before it: a flow
+            # whose one output batch holds the whole run would
+            # otherwise pass its last checkpoint before any of its
+            # device time
+            _cancel.checkpoint()
             return
         except FlowRestart as fr:
             if restarts == MAX_RESTARTS:
                 raise
             restarts += 1
             stats.add("flow.restart")
+            reg.counter("sql_flow_restarts_total",
+                        "deferred-flag flow restarts").inc()
+            _tracing.record("flow.restart", n=restarts,
+                            op=type(fr.op).__name__)
+            _log.get_logger().info(
+                _log.Channel.SQL_EXEC,
+                "flow restart {}: widening {}", restarts - 1,
+                type(fr.op).__name__)
             fr.op.widen()
         except Exception as e:  # noqa: BLE001 — the classifier decides
             if _retry.classify(e) != _retry.RETRYABLE:
@@ -1587,6 +1645,7 @@ def _run_tier(driver, reset: Callable[[], None],
             pause = next(backoffs, None)
             if pause is None:
                 raise  # retry budget exhausted: the ladder steps down
+            _cancel.checkpoint()
             _retry.record_retry("flow", pause)
             opts.sleep(pause)
 
@@ -1606,11 +1665,38 @@ def run_flow(op: Operator, reset: Callable[[], None],
     output first). Each rung has a process-wide circuit breaker
     (util/circuit.py): a tier that keeps failing trips open, and later
     queries skip past it. A RESOURCE error (device memory, a memory
-    budget) steps down one rung and counts `resilience.degrade.<tier>`;
-    on the last rung it propagates. A TERMINAL error (a CUDA fault, a
-    logic error) propagates from any rung."""
+    budget) steps down one rung and counts `resilience.degrade.<tier>`
+    and `sql_resilience_degradations_total`; on the last rung it
+    propagates. A TERMINAL error (a cancelled statement, a CUDA fault, a
+    logic error) propagates from any rung, and trips no breaker.
+
+    With `sql.tpu.admission_slots` > 0 the flow first takes one slot of
+    the flow queue (util/admission.py), before any lock of the fused
+    runner. Each tier runs in a `flow.<tier>` trace span; the root span
+    is tagged with the tier that finished the query."""
+    from cockroach_tpu_torch.util.admission import flow_queue
+
+    queue = flow_queue()
+    if queue is not None:
+        with queue.admit():
+            return _run_flow_inner(op, reset, consume, device, fuse)
+    return _run_flow_inner(op, reset, consume, device, fuse)
+
+
+def _run_flow_inner(op: Operator, reset: Callable[[], None],
+                    consume: Callable[[Batch], None], device: torch.device,
+                    fuse: bool) -> None:
+    import time
+
     from cockroach_tpu_torch.util import circuit as _circuit
-    from cockroach_tpu_torch.util import retry as _retry
+    from cockroach_tpu_torch.util import log as _log
+    from cockroach_tpu_torch.util.metric import default_registry
+
+    reg = default_registry()
+    reg.counter("sql_queries_total", "queries run by the flow driver").inc()
+    q_hist = reg.histogram("sql_query_seconds",
+                           "end-to-end query wall time")
+    t_start = time.perf_counter()
 
     tiers: List[Tuple[str, object]] = []
     if fuse:
@@ -1628,20 +1714,26 @@ def run_flow(op: Operator, reset: Callable[[], None],
     tiers.append(("spill", op))
 
     for i, (tier, driver) in enumerate(tiers):
+        # a cancelled statement must not start (or degrade into) another
+        # tier — a deadline that fired mid-fused must not pay for spill
+        _cancel.checkpoint()
         last_tier = i == len(tiers) - 1
         br = _circuit.breaker("flow." + tier)
         if not br.allow():
             if not last_tier:
                 stats.add(f"resilience.skip.{tier}")
+                _tracing.record("breaker.skip", tier=tier)
                 continue
             # every rung is tripped but the query still has to run: the
             # final rung runs as a forced probe
             stats.add(f"resilience.forced.{tier}")
+            _tracing.record("breaker.forced", tier=tier)
         restore = (_clamp_workmem_for_spill(op) if tier == "spill"
                    else None)
         try:
             try:
-                _run_tier(driver, reset, consume, device)
+                with _tracing.child_span("flow." + tier):
+                    _run_tier(driver, reset, consume, device, reg)
             finally:
                 if restore is not None:
                     restore()
@@ -1654,9 +1746,20 @@ def run_flow(op: Operator, reset: Callable[[], None],
             br.failure()
             if last_tier:
                 raise
+            reg.counter("sql_resilience_degradations_total",
+                        "execution-ladder tier step-downs").inc()
             stats.add(f"resilience.degrade.{tier}")
+            _tracing.record("degrade", from_tier=tier,
+                            to_tier=tiers[i + 1][0],
+                            error=type(e).__name__)
+            _log.get_logger().info(
+                _log.Channel.SQL_EXEC,
+                "degrading {} -> {}: {}: {}", tier, tiers[i + 1][0],
+                type(e).__name__, str(e)[:200])
             continue
         br.success()
+        _tracing.tag_root(tier=tier)
+        q_hist.observe(time.perf_counter() - t_start)
         return
 
 

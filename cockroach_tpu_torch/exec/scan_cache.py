@@ -12,10 +12,10 @@ catalog's key when it calls the cache: an image made on one device is
 never borrowed on another.
 
 LRU eviction runs under the `storage.hbm_scan_image_cache_bytes` budget
-(util/settings.py). Not ported yet: the fault-injection seam on insert
-(`maybe_fail("cache.insert")`; util/fault.py is ported, the seam is
-not wired) and the trace records (util/tracing.py), both ROADMAP.md
-queue 1, item 8.
+(util/settings.py). A hit or a miss is a stats event and a trace record
+(`scan.cache_hit` / `scan.cache_miss`); an insert passes the fault seam
+`cache.insert`, and a fault there is a miss: the caller keeps its
+private copy, as on budget overflow.
 """
 
 from __future__ import annotations
@@ -25,6 +25,8 @@ from collections import OrderedDict
 from typing import Any, List, Optional, Tuple
 
 from cockroach_tpu_torch.exec import stats
+from cockroach_tpu_torch.util import tracing as _tracing
+from cockroach_tpu_torch.util.fault import maybe_fail
 from cockroach_tpu_torch.util.settings import (
     SCAN_IMAGE_CACHE_BUDGET, Settings,
 )
@@ -57,9 +59,11 @@ class ScanImageCache:
             hit = self._entries.get(key)
             if hit is None:
                 stats.add("scan.cache_miss")
+                _tracing.record("scan.cache_miss")
                 return None
             self._entries.move_to_end(key)
         stats.add("scan.cache_hit", bytes=hit[1])
+        _tracing.record("scan.cache_hit", bytes=hit[1])
         return hit[0]
 
     def contains(self, key: tuple) -> bool:
@@ -70,9 +74,16 @@ class ScanImageCache:
 
     def put(self, key: tuple, value: Any, nbytes: int) -> bool:
         """Insert (replacing any stale entry); returns False when the item
-        alone exceeds the budget (the caller keeps its private copy)."""
+        alone exceeds the budget (the caller keeps its private copy). A
+        cache insert can never fail a query: any fault here degrades to a
+        miss, exactly as on budget overflow."""
         budget = self.budget()
         if nbytes > budget:
+            return False
+        try:
+            maybe_fail("cache.insert")
+        except Exception:  # noqa: BLE001 — insert failure == cache miss
+            stats.add("scan.cache_insert_fail")
             return False
         evicted = 0
         with self._mu:

@@ -26,9 +26,11 @@ that reads it has run, and pulling the next chunk early
 (exec/operators.py _read_ahead) overlaps its copy with the consumer's
 kernels.
 
-Not ported yet: the fault seams (`maybe_fail("spill.block_write")`,
-`"spill.block_read"`) and the `util/tracing.py` records, which wait for
-ROADMAP.md queue 1 item 8; the `with_retry` wrappers are in place.
+A block's append passes the fault seam `spill.block_write` and its
+replay upload `spill.block_read`, each before any state changes and
+under `with_retry`, so a transient fault re-enters a clean append or
+re-uploads the same block. A partitioned batch records `spill.grace`
+and a replayed chunk `spill.replay` on the active trace span.
 """
 
 from __future__ import annotations
@@ -52,6 +54,8 @@ from cockroach_tpu_torch.exec.operators import Operator
 from cockroach_tpu_torch.ops.bitpack import srl
 from cockroach_tpu_torch.ops.hash import hash_columns
 from cockroach_tpu_torch.util import retry as _retry
+from cockroach_tpu_torch.util import tracing as _tracing
+from cockroach_tpu_torch.util.fault import maybe_fail
 from cockroach_tpu_torch.util.mon import (
     BoundAccount, BudgetExceededError, BytesMonitor,
 )
@@ -200,6 +204,9 @@ class HostPartition:
         self._disk: Optional[DiskQueueFile] = None
 
     def append(self, block: SpilledBlock) -> None:
+        # the fault fires BEFORE any state mutates so with_retry at the
+        # call site re-enters a clean append
+        maybe_fail("spill.block_write")
         self.n_rows += block.n_rows
         stats.add("spill.write", rows=block.n_rows, bytes=block.nbytes)
         if self._disk is None:
@@ -334,6 +341,8 @@ class GracePartitioner:
         parts = sorted_part[:block.n_rows].cpu().numpy()
         stats.add("spill.partition", seconds=time.perf_counter() - t0,
                   rows=block.n_rows)
+        _tracing.record("spill.grace", rows=block.n_rows,
+                        level=self.level)
         bounds = np.searchsorted(parts, np.arange(self.P + 1))
         for p in range(self.P):
             lo, hi = int(bounds[p]), int(bounds[p + 1])
@@ -405,12 +414,18 @@ class BlockSource(Operator):
                 return
             n = len(next(iter(
                 v for k, v in chunk.items() if not k.startswith("__valid_"))))
-            b = _retry.with_retry(
-                lambda chunk=chunk, n=n: upload_chunk(
-                    chunk, n, self.schema, self.capacity, device),
-                name="spill.block_read")
+
+            def upload(chunk=chunk, n=n):
+                # idempotent, so a transient read/transfer fault
+                # re-uploads the same block
+                maybe_fail("spill.block_read")
+                return upload_chunk(chunk, n, self.schema, self.capacity,
+                                    device)
+
+            b = _retry.with_retry(upload, name="spill.block_read")
             stats.add("spill.replay", seconds=time.perf_counter() - t0,
                       rows=n, bytes=sum(v.nbytes for v in chunk.values()))
+            _tracing.record("spill.replay", rows=n)
             yield b
 
 

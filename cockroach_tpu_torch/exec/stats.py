@@ -16,7 +16,8 @@ device attribution trace a run with torch.profiler (chip_smoke.py
                   per-query collection)
   scan.transfer   enqueueing its host-to-device copy
   scan.stack      stacking a resident scan's chunks into one image
-  scan.cache_*    the scan-image cache: hit, miss, evict, invalidate
+  scan.cache_*    the scan-image cache: hit, miss, evict, invalidate,
+                  insert_fail (a fault at the `cache.insert` seam)
   agg.fold_stacked   a GROUP BY over a scan's resident image (an event)
   join.build_stacked a join build made from a resident image (an event)
   agg.fold        a GROUP BY's per-batch partial and fold
@@ -29,6 +30,8 @@ device attribution trace a run with torch.profiler (chip_smoke.py
   fused.capture   the capture of its CUDA graph (after an eager warm-up)
   fused.replay    one replay of the graph
   fused.readback  the copy of the packed result to the host
+  fused.first_execution
+                  a runner's first run (sql_first_execution_seconds)
   fused.fallback_unsupported / fused.fallback_result
                   a fused run handed to the streaming operators
   resilience.degrade.<tier> / .skip.<tier> / .forced.<tier> /

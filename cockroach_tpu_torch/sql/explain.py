@@ -8,12 +8,16 @@ either result columns or an explain rendering.
 Counterpart of cockroach_tpu/sql/explain.py: `render_plan`, `execute`
 and `execute_with_plan`, with the placement pass's tier annotations and
 the `engine:` line, which prints the card's coefficients (sql/cost.py).
-EXPLAIN ANALYZE runs the query under exec/stats and prints the stage
-report and the per-operator breakdown with tiers; the tracing span, its
-resilience digest and the statement bundle wait for util/tracing.py
-(ROADMAP.md queue 1, item 8), as do the `crdb_internal.` virtual tables
-and the query registry's phases: a statement naming `crdb_internal.`
-raises BindError.
+EXPLAIN ANALYZE runs the query under exec/stats and a `query` trace
+span (always traced, whatever `sql.trace.enabled` says) and prints the
+stage report, the per-operator breakdown with tiers, the span tree and
+its one-line resilience digest (util/tracing.py `summarize`); EXPLAIN
+ANALYZE (DEBUG) also writes the statement bundle
+(server/debugzip.py `write_statement_bundle`) under the temporary
+directory and prints its path. A statement naming `crdb_internal.` binds
+and runs over a per-statement sql/vtable.py VirtualCatalog. The
+statement's query-registry entry (server/registry.py) goes from
+`compiling` (bind) to `executing` (run).
 """
 
 from __future__ import annotations
@@ -22,7 +26,7 @@ import time
 from typing import Dict, List, Tuple
 
 from cockroach_tpu_torch.sql import parser as P
-from cockroach_tpu_torch.sql.bind import BindError, Binder
+from cockroach_tpu_torch.sql.bind import Binder
 from cockroach_tpu_torch.sql.plan import (
     Aggregate, Catalog, Distinct, Filter, IndexScan, Join, Limit, OrderBy,
     Plan, Project, Scan, Window, _walk_plan, normalize,
@@ -132,6 +136,7 @@ def execute_with_plan(sql: str, catalog: Catalog, capacity: int = 1 << 17,
     is the session's `vectorize`; `resident` marks the scans resident
     (sql/plan_compile.py compile_plan)."""
     from cockroach_tpu_torch.exec import stats
+    from cockroach_tpu_torch.server.registry import default_query_registry
     from cockroach_tpu_torch.sql.plan import run
 
     if ast is None:
@@ -140,10 +145,17 @@ def execute_with_plan(sql: str, catalog: Catalog, capacity: int = 1 << 17,
     analyze = ast.analyze if is_explain else False
     stmt = ast.stmt if is_explain else ast
     if "crdb_internal." in sql:
-        raise BindError("crdb_internal virtual tables are not ported yet "
-                        "(ROADMAP.md queue 1, item 8)")
+        # virtual-schema statements bind and run against a per-statement
+        # VirtualCatalog wrapper: crdb_internal.* names materialize from
+        # the live registries, everything else delegates (sql/vtable.py)
+        from cockroach_tpu_torch.sql.vtable import VirtualCatalog
+
+        catalog = VirtualCatalog(catalog)
+    qreg = default_query_registry()
+    qreg.set_phase_current("compiling")
     plan = Binder(catalog).bind(stmt)
     if not is_explain:
+        qreg.set_phase_current("executing")
         sink = [] if op_sink is not None else None
         result, schema = run(plan, catalog, capacity, mesh=mesh,
                              with_schema=True, op_sink=sink, sql=sql,
@@ -181,12 +193,17 @@ def execute_with_plan(sql: str, catalog: Catalog, capacity: int = 1 << 17,
         f"~{crossover_rows()} rows; gpu dispatch floor "
         f"{1000 * est_device_seconds(0):.3f}ms)")
     if analyze:
+        from cockroach_tpu_torch.util.tracing import summarize, tracer
+
         st = stats.enable()
         try:
-            t0 = time.perf_counter()
-            res = run(norm, catalog, capacity, mesh=mesh, sql=sql,
-                      device=device, setting=setting, resident=resident)
-            elapsed = time.perf_counter() - t0
+            qreg.set_phase_current("executing")
+            with tracer().span("query", sql=sql[:60]) as sp:
+                t0 = time.perf_counter()
+                res = run(norm, catalog, capacity, mesh=mesh, sql=sql,
+                          device=device, setting=setting,
+                          resident=resident)
+                elapsed = time.perf_counter() - t0
             n = len(next(iter(res.values()))) if res else 0
             lines.append("")
             lines.append(f"execution: {elapsed * 1e3:.1f}ms, "
@@ -243,6 +260,35 @@ def execute_with_plan(sql: str, catalog: Catalog, capacity: int = 1 << 17,
                            for oc in host_ops}.values():
                     lines.append(f"  {oc.name:<12}       0.0 host-ms"
                                  f"  tier=host ({oc.reason})")
+            lines.append("")
+            lines.extend(sp.render().splitlines())
+            # resilience digest: what the span tree says happened to the
+            # query on its way down the ladder (one line, greppable)
+            summ = summarize(sp)
+            lines.append("")
+            lines.append(
+                f"resilience: tier={summ['tier'] or 'n/a'} "
+                f"retries={summ['retries']} "
+                f"degradations={summ['degradations']} "
+                f"restarts={summ['restarts']}")
+            if getattr(ast, "debug", False):
+                # EXPLAIN ANALYZE (DEBUG): persist the statement bundle
+                # (plan + span tree + operator times + digest) and say
+                # where it landed
+                import os
+                import tempfile
+
+                from cockroach_tpu_torch.server.debugzip import (
+                    write_statement_bundle,
+                )
+
+                path = os.path.join(
+                    tempfile.gettempdir(),
+                    f"stmt-bundle-{sp.trace_id:x}.zip")
+                write_statement_bundle(path, sql, lines, span=sp,
+                                       operators=ops, digest=summ)
+                lines.append("")
+                lines.append(f"statement bundle: {path}")
         finally:
             stats.disable()
     return "explain", lines, None

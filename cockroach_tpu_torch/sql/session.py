@@ -23,6 +23,21 @@ sql/explain.py `execute_with_plan` on the session's `device` (CUDA
 unless the caller passes one); each statement records into sqlstats,
 and an engine error is mapped to its SQLSTATE.
 
+The statement lifecycle (`execute`, as in the JAX session): every
+statement registers in the process-wide query registry
+(server/registry.py), whose entry is its CancelContext, armed with the
+effective `statement_timeout` (the session variable, else the cluster
+setting `sql.defaults.statement_timeout`); a work statement then takes a
+session admission slot (util/admission.py; the control heads SET, SHOW,
+CANCEL and the transaction statements are exempt; a shed is 53300); a
+cancel or a deadline anywhere surfaces as 57014 with the session
+reusable; the statement runs under a `session.execute` root span when
+`sql.trace.enabled` is on; the slow-query log and the execution
+insights (sql/insights.py) observe it. `cancel_query` cancels the
+in-flight statement from another thread; SHOW QUERIES | SESSIONS | JOBS
+read sql/vtable.py's providers; CANCEL QUERY <id> reaches the local
+registry (42704 on a miss).
+
 A session's scans are resident (sql/plan_compile.py compile_plan): a
 table's image, once made, stays in the scan-image cache. A SELECT's
 built operator tree is kept in a prepared cache keyed on the exact text
@@ -52,10 +67,11 @@ Departures from the JAX module:
 
 Not ported yet (each raises a BindError naming its ROADMAP.md queue 1
 item, or the JAX package's message):
-  - 8a, the lifecycle seams: the query registry, admission, cancel
-    (CANCEL QUERY, SHOW QUERIES/SESSIONS/JOBS), insights, the slow-query
-    log, `statement_timeout`, `admission_slots`, `admission_priority`;
-  - 8b, matviews and changefeeds, with PAUSE/RESUME/CANCEL JOB;
+  - 8b, matviews and changefeeds, with PAUSE/RESUME/CANCEL JOB (SHOW
+    JOBS lists the catalog's jobs registry without their resumers);
+  - 8d's `execute_spec` (the serving queue's EXECUTE fast path), and
+    with it the registry's `serving-batched` phase;
+  - 8e's `route_cancel`: CANCEL QUERY of an id another node owns;
   - 8c, vector operators (VECTOR columns parse and store);
   - 8d, serving: `serving_image_key`, `resident_serving`, the serving
     queue's batch specs and `_serving_still_warm`;
@@ -66,6 +82,7 @@ from __future__ import annotations
 
 import contextlib
 import datetime
+import itertools
 import json
 import struct
 import threading
@@ -85,10 +102,40 @@ from cockroach_tpu_torch.sql import parser as P
 from cockroach_tpu_torch.sql.bind import BindError
 from cockroach_tpu_torch.sql.plan import Catalog
 from cockroach_tpu_torch.storage.mvcc import MVCCStore, encode_key
+from cockroach_tpu_torch.util import admission as _admission
 from cockroach_tpu_torch.util.hlc import Timestamp
 from cockroach_tpu_torch.util.settings import Settings
 
 DESC_TABLE = 0xFFE0  # descriptor system keyspace (system.descriptor)
+
+SLOW_QUERY_LATENCY = Settings.register(
+    "sql.log.slow_query_latency",
+    0.0,
+    "statements slower than this (seconds) log a structured SQL_EXEC "
+    "slow_query event; 0 disables",
+)
+
+SLOW_QUERY_INTERVAL = Settings.register(
+    "sql.log.slow_query_interval",
+    0.0,
+    "minimum seconds between slow_query events for the same statement "
+    "fingerprint (rate limit, so high-rate batched workloads can't "
+    "flood SQL_EXEC); 0 logs every occurrence",
+)
+
+STATEMENT_TIMEOUT = Settings.register(
+    "sql.defaults.statement_timeout",
+    0.0,
+    "default per-statement execution deadline in seconds (overridable "
+    "per session via SET statement_timeout); a statement exceeding it "
+    "aborts with SQLSTATE 57014 query_canceled; 0 disables",
+)
+
+# slow-query rate-limit state: fingerprint -> last log time (monotonic).
+# Process-wide, like the log channel it protects.
+_slow_log_mu = threading.Lock()
+_slow_log_last: Dict[str, float] = {}
+_session_ids = itertools.count(1)
 
 
 class SQLError(Exception):
@@ -102,16 +149,21 @@ class SQLError(Exception):
 
 
 def map_execution_error(e: BaseException) -> Optional[SQLError]:
-    """Translate engine-internal failures to SQL errors: memory-budget
-    trips become 53200 out_of_memory; an exhausted restart budget
-    becomes 40001 serialization_failure (the statement is safe for the
-    client to retry). Anything else keeps its Python identity (BindError
-    et al. are already user-facing). The port's retry loop re-raises its
-    last error where the JAX package's raises RetriesExhausted, and the
-    cancellation seam (57014) waits for util/cancel.py (item 8a)."""
+    """Translate engine-internal failures to SQL errors: a cancelled
+    statement (a cancel from another thread, CANCEL QUERY,
+    statement_timeout) becomes 57014 query_canceled, with the session
+    left usable; memory-budget trips become 53200 out_of_memory; an
+    exhausted restart budget becomes 40001 serialization_failure (the
+    statement is safe for the client to retry). Anything else keeps its
+    Python identity (BindError et al. are already user-facing). The
+    port's retry loop re-raises its last error where the JAX package's
+    raises RetriesExhausted."""
     from cockroach_tpu_torch.exec.operators import FlowRestart
+    from cockroach_tpu_torch.util.cancel import QueryCancelled
     from cockroach_tpu_torch.util.mon import BudgetExceededError
 
+    if isinstance(e, QueryCancelled):
+        return SQLError("57014", f"query canceled: {e}")
     if isinstance(e, BudgetExceededError):
         return SQLError("53200", f"out of memory: {e}")
     if isinstance(e, FlowRestart):
@@ -616,11 +668,8 @@ class _Prepared:
 _LATER = {
     P.CreateChangefeed: "8b", P.StreamChangefeed: "8b",
     P.CreateMatView: "8b", P.DropMatView: "8b", P.RefreshMatView: "8b",
-    P.JobControl: "8b", P.ShowStmt: "8a", P.CancelQuery: "8a",
+    P.JobControl: "8b",
 }
-# session variables of the JAX session that wait for item 8a
-_LATER_VARS = ("statement_timeout", "admission_slots",
-               "admission_priority")
 # statements that change plans wholesale (the version check cannot see
 # them): each clears the prepared cache
 _PLAN_CHANGING = (P.CreateTable, P.DropTable, P.CreateIndex, P.AlterTable,
@@ -640,24 +689,51 @@ class Session:
     _VARS = {
         "exact_arithmetic": "sql.tpu.exact_arithmetic",
         "pallas": "sql.gpu.kernels",
+        "admission_slots": _admission.ADMISSION_SLOTS,
         "workmem": "sql.distsql.temp_storage.workmem",
         "vectorize": None,
+        # per-statement deadline in seconds: session-local, defaulting
+        # to the sql.defaults.statement_timeout cluster setting
+        "statement_timeout": None,
+        # admission priority for this session's statements: low|normal|high
+        "admission_priority": None,
     }
     _VECTORIZE = ("auto", "gpu", "cpu")
 
-    # statements exempt from error-aborts-transaction: a failing
-    # transaction-control or variable statement does not poison it
+    # statements exempt from admission gating AND from error-aborts-txn:
+    # transaction control must always run (a COMMIT queued behind the
+    # very work holding the slots would wedge), SET/SHOW are free, and
+    # CANCEL must reach an overloaded server
     _CONTROL_HEADS = ("begin", "commit", "rollback", "abort", "start",
                       "set", "show", "cancel")
 
     PREPARED_CACHE_ENTRIES = 32
 
     def __init__(self, catalog: Catalog, capacity: int = 1 << 14,
-                 device=None, db: Optional[DB] = None):
+                 device=None, db: Optional[DB] = None, registry=None):
+        from cockroach_tpu_torch.server.registry import (
+            default_query_registry,
+        )
+
         self.catalog = catalog
         self.capacity = capacity
         self.device = device
-        self.vars: Dict[str, object] = {"vectorize": "auto"}
+        self.session_id = next(_session_ids)
+        # SHOW SESSIONS visibility; the registry holds this session by
+        # weakref, so registration never extends its life
+        self._qreg = registry or default_query_registry()
+        self._qreg.register_session(self)
+        # execution-insights sampling state (_observe_insight): tick
+        # counter for the 1-in-8 sub-floor baseline feed and the cached
+        # latency floor (0.0 -> the first statement refreshes it)
+        self._ins_tick = 0
+        self._ins_floor = 0.0
+        # the in-flight statement's cancel context, set for the duration
+        # of execute(): cancel_query() reaches it from OTHER threads
+        self._cancel_mu = threading.Lock()
+        self._active_cancel = None
+        self.vars: Dict[str, object] = {"vectorize": "auto",
+                                        "admission_priority": "normal"}
         if db is None and isinstance(catalog, SessionCatalog):
             db = DB(catalog.store)
         self.db = db
@@ -676,6 +752,34 @@ class Session:
             self._prepared = OrderedDict()
             self._prepared_mu = threading.Lock()
 
+    # ------------------------------------------------------ cancellation
+
+    def _statement_timeout(self) -> float:
+        """Effective statement deadline: session var if SET, else the
+        sql.defaults.statement_timeout cluster setting; <= 0 = none."""
+        v = self.vars.get("statement_timeout")
+        if v is None:
+            v = Settings().get(STATEMENT_TIMEOUT)
+        try:
+            return float(v)
+        except (TypeError, ValueError):
+            return 0.0
+
+    def _admission_priority(self) -> int:
+        return {"low": _admission.LOW, "high": _admission.HIGH}.get(
+            str(self.vars.get("admission_priority", "normal")).lower(),
+            _admission.NORMAL)
+
+    def cancel_query(self, reason: str = "query cancelled") -> bool:
+        """Cancel the in-flight statement (if any) from another thread.
+        Returns whether a statement was in flight to cancel."""
+        with self._cancel_mu:
+            ctx = self._active_cancel
+        if ctx is None:
+            return False
+        ctx.cancel(reason)
+        return True
+
     # ---------------------------------------------------------- execute --
 
     def execute(self, sql: str) -> Tuple[str, object, object]:
@@ -683,37 +787,155 @@ class Session:
         kind 'ok' (DDL, DML, SET; payload = tag string). Every statement
         records into sqlstats under a per-query stats overlay, which
         attributes its execution seconds to its fingerprint. A failing
-        statement inside an open transaction aborts it (Postgres)."""
+        statement inside an open transaction aborts it (Postgres).
+
+        The lifecycle seams around `_execute`: the statement registers
+        in the query registry BEFORE admission (a queued statement is
+        visible to SHOW QUERIES and cancellable); its entry is the
+        CancelContext armed with the effective statement_timeout; work
+        statements pass session admission (shed -> 53300); a cancel or a
+        deadline surfaces as 57014 with the session reusable; the root
+        span, the slow-query log and the insights observe it. Every exit
+        path deregisters the entry and releases the slot."""
         from cockroach_tpu_torch.exec import stats as _stats
+        from cockroach_tpu_torch.server import registry as _registry
+        from cockroach_tpu_torch.sql.insights import default_insights
         from cockroach_tpu_torch.sql.sqlstats import default_sqlstats
+        from cockroach_tpu_torch.util import cancel as _cancel
+        from cockroach_tpu_torch.util import tracing
 
         head = sql.strip().split(None, 1)[0].lower() if sql.strip() else ""
         t0 = time.perf_counter()
-        with _stats.query_stats() as qcol:
-            try:
-                kind, payload, schema = self._execute(sql)
-            except Exception as e:
+        timeout = self._statement_timeout()
+        qreg = self._qreg
+        # the registry entry doubles as the statement's CancelContext
+        ctx = qentry = qreg.register(
+            self, sql, timeout if timeout > 0 else None,
+            phase=_registry.PHASE_QUEUED, track=True, start_pc=t0)
+        qid = qentry.query_id
+        with self._cancel_mu:
+            self._active_cancel = ctx
+        queue = None
+        try:
+            with tracing.query_span("session.execute", sql=sql[:60]), \
+                    _cancel.active(ctx), _stats.query_stats() as qcol:
+                try:
+                    queue = self._admit(head)
+                    qentry.phase = _registry.PHASE_EXECUTING
+                    kind, payload, schema = self._execute(sql)
+                except Exception as e:
+                    elapsed = time.perf_counter() - t0
+                    default_sqlstats().record(
+                        sql, elapsed, error=True,
+                        session_id=self.session_id,
+                        device_s=_stats.device_seconds(qcol),
+                        bytes_scanned=_stats.bytes_scanned(qcol))
+                    self._maybe_log_slow(sql, elapsed, error=True)
+                    default_insights().observe(
+                        sql, elapsed, session_id=self.session_id,
+                        query_id=qid,
+                        shed=(isinstance(e, SQLError)
+                              and e.pgcode == "53300"),
+                        degraded=_stats.degradations_seen(qcol),
+                        error=True)
+                    if self._txn is not None and \
+                            head not in self._CONTROL_HEADS:
+                        self._txn_aborted = True
+                    mapped = map_execution_error(e)
+                    if mapped is not None:
+                        try:
+                            raise mapped from e
+                        finally:
+                            # no frame -> error -> traceback -> frame
+                            # cycle: the failed flow's device memory goes
+                            # with the traceback, not at a later GC pass
+                            del mapped
+                    raise
+                rows = 0
+                if kind == "rows" and payload:
+                    first = next(iter(payload.values()), None)
+                    rows = len(first) if first is not None else 0
+                elapsed = time.perf_counter() - t0
                 default_sqlstats().record(
-                    sql, time.perf_counter() - t0, error=True,
+                    sql, elapsed, rows=rows, session_id=self.session_id,
                     device_s=_stats.device_seconds(qcol),
-                    bytes_scanned=_stats.bytes_scanned(qcol))
-                if self._txn is not None and \
-                        head not in self._CONTROL_HEADS:
-                    self._txn_aborted = True
-                mapped = map_execution_error(e)
-                if mapped is not None:
-                    raise mapped from e
-                raise
-            rows = 0
-            if kind == "rows" and payload:
-                first = next(iter(payload.values()), None)
-                rows = len(first) if first is not None else 0
-            default_sqlstats().record(
-                sql, time.perf_counter() - t0, rows=rows,
-                device_s=_stats.device_seconds(qcol),
-                bytes_scanned=_stats.bytes_scanned(qcol),
-                op_device=_stats.operator_device(qcol))
-        return kind, payload, schema
+                    bytes_scanned=_stats.bytes_scanned(qcol),
+                    op_device=_stats.operator_device(qcol))
+                self._maybe_log_slow(sql, elapsed, rows=rows)
+                self._observe_insight(sql, elapsed, qid,
+                                      _stats.degradations_seen(qcol))
+            return kind, payload, schema
+        finally:
+            qreg.deregister(self, qentry, True)
+            if queue is not None:
+                queue.release()
+            with self._cancel_mu:
+                self._active_cancel = None
+
+    def _admit(self, head: str):
+        """Session-layer admission: gate work statements through the
+        shared WorkQueue. Returns the queue holding ONE slot — released
+        in execute()'s finally, so a shed, cancel or execution error
+        never leaks a slot — or None when admission is off or the
+        statement is exempt."""
+        queue = _admission.session_queue()
+        if queue is None or head in self._CONTROL_HEADS:
+            return None
+        try:
+            queue.acquire(
+                priority=self._admission_priority(),
+                timeout=float(Settings().get(
+                    _admission.SESSION_QUEUE_TIMEOUT)))
+        except TimeoutError as e:
+            # 53300 too_many_connections: the server is at capacity —
+            # overload sheds statements instead of a collapsing convoy
+            raise SQLError(
+                "53300",
+                "statement shed: admission queue timed out under "
+                "overload") from e
+        return queue
+
+    def _observe_insight(self, sql: str, elapsed: float, qid: int,
+                         degraded: bool) -> None:
+        """Healthy-statement insights seam. Full observe() runs for
+        degraded or at/above-floor executions (those can flag) and for
+        a 1-in-8 baseline sample of sub-floor ones; the other 7/8 of
+        warm sub-floor statements pay only this guard."""
+        tick = self._ins_tick = (self._ins_tick + 1) & 7
+        if degraded or tick == 0 or elapsed >= self._ins_floor:
+            from cockroach_tpu_torch.sql.insights import default_insights
+
+            ins = default_insights()
+            self._ins_floor = ins.min_latency_floor()
+            ins.observe(sql, elapsed, session_id=self.session_id,
+                        query_id=qid, degraded=degraded)
+
+    def _maybe_log_slow(self, sql: str, elapsed: float, rows: int = 0,
+                        error: bool = False) -> None:
+        """Slow-query log (sql.log.slow_query_latency feeding the
+        SQL_EXEC channel). Disabled at the default 0."""
+        threshold = float(Settings().get(SLOW_QUERY_LATENCY))
+        if threshold <= 0 or elapsed < threshold:
+            return
+        interval = float(Settings().get(SLOW_QUERY_INTERVAL))
+        if interval > 0:
+            from cockroach_tpu_torch.sql.sqlstats import fingerprint
+
+            fp = fingerprint(sql)
+            now = time.monotonic()
+            with _slow_log_mu:
+                last = _slow_log_last.get(fp)
+                if last is not None and now - last < interval:
+                    return
+                _slow_log_last[fp] = now
+        from cockroach_tpu_torch.util.log import (
+            Channel, Redactable, get_logger,
+        )
+
+        get_logger().structured(
+            Channel.SQL_EXEC, "WARNING", "slow_query",
+            sql=Redactable(sql), latency_s=round(elapsed, 4), rows=rows,
+            error=error, session=self.session_id)
 
     # ------------------------------------------------ prepared statements
 
@@ -808,9 +1030,27 @@ class Session:
         if isinstance(ast, P.ShowVar):
             name = ast.name
             if name not in self._VARS:
-                self._unknown_var(name)
-            return "rows", {name: np.asarray([str(self._get_var(name))],
+                raise BindError(f"unknown session variable {name!r}")
+            if name == "statement_timeout":
+                # the effective value: the session's, else the default
+                value = self.vars.get(name)
+                if value is None:
+                    value = Settings().get(STATEMENT_TIMEOUT)
+            else:
+                value = self._get_var(name)
+            return "rows", {name: np.asarray([str(value)],
                                              dtype=object)}, None
+        if isinstance(ast, P.ShowStmt):
+            return self._show_stmt(ast)
+        if isinstance(ast, P.CancelQuery):
+            reason = f"CANCEL QUERY {ast.query_id}"
+            # the local registry; routing an id another node owns is
+            # ROADMAP.md queue 1, item 8e
+            if not self._qreg.cancel(ast.query_id, reason=reason):
+                # 42704 undefined_object: the id names nothing live
+                raise SQLError("42704",
+                               f"unknown query id {ast.query_id}")
+            return "ok", "CANCEL QUERY", None
         if type(ast) in _LATER:
             raise BindError(
                 f"{type(ast).__name__} is not ported yet (ROADMAP.md "
@@ -925,11 +1165,38 @@ class Session:
 
     # ------------------------------------------------------------- vars --
 
-    def _unknown_var(self, name: str):
-        if name in _LATER_VARS:
-            raise BindError(f"session variable {name!r} is not ported yet "
-                            "(ROADMAP.md queue 1, item 8a)")
-        raise BindError(f"unknown session variable {name!r}")
+    def _show_stmt(self, ast: "P.ShowStmt"):
+        """SHOW QUERIES | SESSIONS | JOBS: sugar over the crdb_internal
+        virtual-table providers, in the ShowVar shape (object-dtype
+        columns, no schema)."""
+        from cockroach_tpu_torch.sql.vtable import TABLES, provider_rows
+
+        table = {"queries": "cluster_queries",
+                 "sessions": "cluster_sessions",
+                 "jobs": "jobs"}[ast.kind]
+        if ast.kind == "jobs" and isinstance(self.catalog,
+                                             SessionCatalog):
+            self._jobs_registry()
+        rows = provider_rows(table, self.catalog)
+        cols = [c for c, _, _ in TABLES[table][0]]
+        payload = {c: np.asarray([r.get(c) for r in rows], dtype=object)
+                   for c in cols}
+        return "rows", payload, None
+
+    def _jobs_registry(self):
+        """The catalog-attached jobs Registry that SHOW JOBS and
+        crdb_internal.jobs list (job records are durable in the store,
+        so it lists the CREATE INDEX and ALTER TABLE backfills every
+        session ran). The changefeed resumer the JAX session registers
+        on it is item 8b."""
+        from cockroach_tpu_torch.server.jobs import Registry
+
+        cat: SessionCatalog = self.catalog
+        reg = getattr(cat, "_jobs_registry", None)
+        if reg is None:
+            reg = Registry(cat.store)
+            cat._jobs_registry = reg
+        return reg
 
     def _get_var(self, name: str):
         key = self._VARS[name]
@@ -939,7 +1206,7 @@ class Session:
 
     def _set_var(self, ast: P.SetVar):
         if ast.name not in self._VARS:
-            self._unknown_var(ast.name)
+            raise BindError(f"unknown session variable {ast.name!r}")
         value = ast.value
         if ast.name not in ("pallas", "vectorize"):  # string-valued vars
             if value in ("on", "true"):

@@ -12,12 +12,11 @@ defeats the lexical fingerprinting) cannot grow it without bound; a
 count of evictions makes eviction pressure observable.
 
 Counterpart of cockroach_tpu/sql/sqlstats.py: `fingerprint`, `StmtStats`,
-`SQLStats` and `default_sqlstats`, with the LRU cap. The port has no
-metric registry yet (util/metric.py, ROADMAP.md queue 1, item 8), so an
-eviction is counted in exec/stats as the event
-`sqlstats.fingerprints_evicted` (its `rows` are the entries evicted),
-where the JAX package increments the counter
-`sqlstats_fingerprints_evicted_total`.
+`SQLStats` and `default_sqlstats`, with the LRU cap. An eviction
+increments the counter `sqlstats_fingerprints_evicted_total`, as in the
+JAX package, and is also counted in exec/stats as the event
+`sqlstats.fingerprints_evicted` (its `rows` are the entries evicted).
+`crdb_internal.statement_statistics` (sql/vtable.py) reads `top`.
 """
 
 from __future__ import annotations
@@ -94,6 +93,15 @@ class StmtStats:
         }
 
 
+def _evicted_counter():
+    from cockroach_tpu_torch.util.metric import default_registry
+
+    return default_registry().counter(
+        "sqlstats_fingerprints_evicted_total",
+        "sqlstats fingerprint entries evicted by the "
+        "sql.metrics.max_stmt_fingerprints LRU cap")
+
+
 class SQLStats:
     def __init__(self):
         self._mu = threading.Lock()
@@ -132,6 +140,7 @@ class SQLStats:
         if evicted:
             from cockroach_tpu_torch.exec import stats as _stats
 
+            _evicted_counter().inc(evicted)
             _stats.add("sqlstats.fingerprints_evicted", rows=evicted)
 
     def get(self, sql_or_fp: str) -> "dict | None":

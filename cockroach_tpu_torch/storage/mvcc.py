@@ -19,9 +19,10 @@ test harness (pkg/storage/mvcc_history_test.go).
 `MVCCStore(device=...)` names the device of the resident tier
 (storage/resident.py): the host-only operations never touch it, and a
 table that attaches resolves it with `resolve_device`, so the tier runs
-on CUDA unless the caller passes device="cpu". The JAX package's trace
-records (its util/tracing module, ROADMAP.md queue 1, item 8) are
-exec/stats events here.
+on CUDA unless the caller passes device="cpu". The resident read is a
+`scan.resident` trace span (and stats timer) and a fallback to the host
+walk a `scan.resident_fallback` record (and stats event), as in the JAX
+package.
 
 The datadriven runner (`run_datadriven`) executes the mvcc_history-style
 command corpus in tests/testdata/mvcc/.
@@ -230,6 +231,7 @@ class MVCCStore:
         from cockroach_tpu_torch.exec import stats
         from cockroach_tpu_torch.storage import resident as _resident
         from cockroach_tpu_torch.util import retry
+        from cockroach_tpu_torch.util import tracing as _tracing
         from cockroach_tpu_torch.util.fault import maybe_fail
 
         rt = _resident.maybe_attach(self, table_id, ncols)
@@ -241,17 +243,22 @@ class MVCCStore:
             return rt.scan_columns(ts, start_pk, end_pk)
 
         try:
-            with stats.timed("scan.resident"):
+            with _tracing.child_span("scan.resident", table=table_id), \
+                    stats.timed("scan.resident"):
                 pks, vals = retry.with_retry(materialize,
                                              name="scan.resident")
-        except _resident.ResidentUnavailable:
+        except _resident.ResidentUnavailable as e:
             stats.add("scan.resident_fallback")
+            _tracing.record("scan.resident_fallback",
+                            error=type(e).__name__)
             _resident.detach(self, table_id)
             return None
         except Exception as e:  # noqa: BLE001 — the classifier decides
             if retry.classify(e) == retry.TERMINAL:
                 raise
             stats.add("scan.resident_fallback")
+            _tracing.record("scan.resident_fallback",
+                            error=type(e).__name__)
             return None
         stats.add("scan.resident_rows", rows=int(pks.shape[0]))
         return pks, vals

@@ -39,10 +39,10 @@ visibility pass, not a rebuild per read.
 Departures from the JAX module:
   - the device is the store's (`MVCCStore(device=...)`, resolved with
     `resolve_device` when a table first attaches);
-  - its trace records (util/tracing.py, ROADMAP.md queue 1, item 8) are
-    exec/stats events and timers with the same names
-    (scan.resident_fold, scan.resident_resync, scan.resident_compact,
-    scan.resident_fallback);
+  - its trace records (util/tracing.py: the `scan.resident_fold` span,
+    the `scan.resident_resync` and `scan.resident_compact` records) are
+    also exec/stats events and timers with the same names, and the
+    compaction is a timer where the JAX module counts an event;
   - an image's host copy (`_Image.vals`) takes its `count` live lanes,
     not the whole padded capacity (`scan.resident_transfer` counts
     those bytes, and times the copy); the feed still goes device ->
@@ -446,12 +446,14 @@ class ResidentTable:
 
     def _fold_locked(self) -> None:
         from cockroach_tpu_torch.exec import stats
+        from cockroach_tpu_torch.util import tracing as _tracing
 
         if self._engine_version() != self._pending_version:
             # a write bypassed the store seam (DDL backfill/drop, raw
             # engine writes): the delta queue is not the whole story —
             # resync from the engine rather than serve stale lanes
             stats.add("scan.resident_resync")
+            _tracing.record("scan.resident_resync", table=self.table_id)
             self._rebuild_locked()
             return
         if not self._deltas:
@@ -460,6 +462,7 @@ class ResidentTable:
         frac = float(Settings().get(RESIDENT_COMPACT_FRACTION))
         if (self.folded_tail + d >= _COMPACT_MIN_DELTAS
                 and self.folded_tail + d > frac * self.base_n):
+            _tracing.record("scan.resident_compact", table=self.table_id)
             with stats.timed("scan.resident_compact",
                              rows=self.folded_tail + d):
                 self._rebuild_locked()
@@ -493,7 +496,8 @@ class ResidentTable:
         lane[2][:d] = np.arange(self._seq_next, self._seq_next + d,
                                 dtype=np.int64)
         out_cap = _mf.pow2_at_least(self.n + d)
-        with stats.timed("scan.resident_fold", rows=d):
+        with _tracing.child_span("scan.resident_fold", rows=d), \
+                stats.timed("scan.resident_fold", rows=d):
             self._pk, self._ts, self._seq, self._tomb, self._vals = \
                 _mf.fold_versions(
                     (self._pk, self._ts, self._seq, self._tomb,

@@ -1,13 +1,21 @@
-"""Per-tier circuit breakers for the execution ladder.
+"""Per-stage circuit breakers for the execution ladder.
 
-A host-only copy of cockroach_tpu/util/circuit.py (reference:
-pkg/util/circuit). Each tier of exec/operators.py run_flow (flow.fused,
-flow.streaming) has a process-wide breaker: after `threshold`
-CONSECUTIVE failures the tier trips OPEN and later queries skip to the
-next rung. After `cooldown_s` it goes HALF-OPEN and admits one probe
-query; a probe success closes it, a probe failure opens it again. The
-JAX package's state gauges wait for util/metric.py (ROADMAP.md queue 1,
-item 8); `state()` reads the state.
+Reference: pkg/util/circuit (circuitbreaker.go) — a breaker per failing
+store/replica so callers stop re-paying a known-bad path. Here each
+execution tier (flow.dist, flow.fused, flow.streaming, flow.spill) gets a
+breaker: after `threshold` CONSECUTIVE infrastructure failures the tier
+trips OPEN and subsequent queries skip straight to the next rung instead
+of re-failing (and re-compiling) the bad one. After `cooldown_s` the
+breaker goes HALF-OPEN and admits exactly one probe query; a probe
+success closes it, a probe failure re-opens the cooldown clock.
+
+State is process-global (like the metric registry) and exported as
+gauges `sql_resilience_breaker_state_<name>` (0 closed / 1 half-open /
+2 open) plus a `sql_resilience_breaker_trips_total` counter.
+
+Counterpart of cockroach_tpu/util/circuit.py, a copy (stdlib only). The
+port's ladder (exec/operators.py run_flow) has the fused, streaming and
+spill tiers; the distributed tier waits for ROADMAP.md queue 1, item 7.
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ BREAKER_COOLDOWN = Settings.register(
 )
 
 CLOSED, HALF_OPEN, OPEN = "closed", "half-open", "open"
+_STATE_GAUGE = {CLOSED: 0, HALF_OPEN: 1, OPEN: 2}
 
 
 class CircuitBreaker:
@@ -49,6 +58,9 @@ class CircuitBreaker:
         self._failures = 0          # consecutive
         self._opened_at = 0.0
         self._probing = False       # a half-open probe is in flight
+        self._export_state()
+
+    # ------------------------------------------------------------ state --
 
     def state(self) -> str:
         with self._mu:
@@ -71,7 +83,9 @@ class CircuitBreaker:
         with self._mu:
             self._failures = 0
             self._probing = False
-            self._state = CLOSED
+            if self._state != CLOSED:
+                self._state = CLOSED
+                self._export_state()
 
     def failure(self) -> None:
         with self._mu:
@@ -80,14 +94,27 @@ class CircuitBreaker:
             if self._state == HALF_OPEN or (
                     self._state == CLOSED
                     and self._failures >= self.threshold):
-                self._state = OPEN
-                self._opened_at = self._clock()
+                self._trip()
 
     def reset(self) -> None:
         with self._mu:
             self._state = CLOSED
             self._failures = 0
             self._probing = False
+            self._export_state()
+
+    # --------------------------------------------------------- internal --
+
+    def _trip(self) -> None:
+        # under self._mu
+        self._state = OPEN
+        self._opened_at = self._clock()
+        from cockroach_tpu_torch.util.metric import default_registry
+
+        default_registry().counter(
+            "sql_resilience_breaker_trips_total",
+            "execution-tier circuit breakers tripped open").inc()
+        self._export_state()
 
     def _maybe_half_open(self) -> None:
         # under self._mu
@@ -95,6 +122,15 @@ class CircuitBreaker:
                 and self._clock() - self._opened_at >= self.cooldown_s):
             self._state = HALF_OPEN
             self._probing = False
+            self._export_state()
+
+    def _export_state(self) -> None:
+        from cockroach_tpu_torch.util.metric import default_registry
+
+        default_registry().gauge(
+            "sql_resilience_breaker_state_" + self.name.replace(".", "_"),
+            "breaker state: 0 closed / 1 half-open / 2 open",
+        ).set(_STATE_GAUGE[self._state])
 
 
 _mu = threading.Lock()
@@ -102,7 +138,7 @@ _breakers: Dict[str, CircuitBreaker] = {}
 
 
 def breaker(name: str) -> CircuitBreaker:
-    """The process-wide breaker for a named tier (created on first use)."""
+    """The process-wide breaker for a named stage (created on first use)."""
     with _mu:
         b = _breakers.get(name)
         if b is None:
@@ -110,8 +146,13 @@ def breaker(name: str) -> CircuitBreaker:
         return b
 
 
+def all_breakers() -> Dict[str, CircuitBreaker]:
+    with _mu:
+        return dict(_breakers)
+
+
 def reset_all() -> None:
-    """Close every breaker (test hygiene between fault cases)."""
+    """Close every breaker (test hygiene between chaos cases)."""
     with _mu:
         bs = list(_breakers.values())
     for b in bs:

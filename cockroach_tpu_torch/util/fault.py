@@ -1,14 +1,18 @@
 """Fault injection: named probabilistic/counted injection points, plus
 the crash-point shim for durable-write seams.
 
-A copy of cockroach_tpu/util/fault.py (stdlib only). The port wires two
-injection points so far, the resident tier's `maybe_fail("scan.resident")`
-(storage/mvcc.py, sql/session.py) and ALTER TABLE's
-`maybe_fail("alter.backfill_chunk")` (sql/session.py); KNOWN_POINTS
-lists only those. The jobs registry's checkpoint passes the crash point
-`jobs.checkpoint` (server/jobs.py, in DURABLE_POINTS). The seams of the
-scan transfer, the cache insert and the spill blocks wait for ROADMAP.md
-queue 1, item 8. The durable-write seams the port's engines pass
+A copy of cockroach_tpu/util/fault.py (stdlib only). KNOWN_POINTS lists
+the injection points the port wires, each where the JAX package has it:
+the scan's transfer and stack (exec/operators.py), the resident tier
+(storage/mvcc.py), the fused program's compile and run (exec/fused.py:
+before the capture or the replay, never inside a CUDA graph capture),
+the scan-image cache's insert (exec/scan_cache.py, swallowed as a
+miss), the spill blocks' write and read (exec/spill.py) and ALTER
+TABLE's backfill (sql/session.py). The JAX points of modules the port
+does not have yet (dist.a2a, dtxn.before_resolve, changefeed.emit,
+view.fold) wait for their ROADMAP.md queue 1 items. The jobs registry's
+checkpoint passes the crash point `jobs.checkpoint` (server/jobs.py, in
+DURABLE_POINTS). The durable-write seams the port's engines pass
 through (wal.append, wal.sync, engine.flush) are the JAX package's.
 
 Reference: pkg/util/fault (fault_strategy.go probabilistic injection
@@ -58,7 +62,14 @@ class SimulatedCrash(BaseException):
 # production code is the source of truth — a point listed here must
 # have a matching maybe_fail() call).
 KNOWN_POINTS = (
+    "scan.transfer",      # host->device piece copy (ScanOp._pack_stream)
+    "scan.stack",         # stacked-image build (ScanOp._stack)
     "scan.resident",      # resident visibility materialize (MVCCStore)
+    "fused.compile",      # eager warm-up + capture, or the first trace
+    "fused.exec",         # fused run: replay or eager run (FusedRunner)
+    "spill.block_write",  # grace-partition block append (HostPartition)
+    "spill.block_read",   # spilled-block replay (BlockSource.batches)
+    "cache.insert",       # scan-image cache insert (ScanImageCache.put)
     "alter.backfill_chunk",  # ALTER TABLE's column backfill (sql/session.py)
 )
 

@@ -9,15 +9,21 @@ keeps only the branches whose exception types the port has:
 - RESOURCE: torch.cuda.OutOfMemoryError, MemoryError (the memory
   monitor's BudgetExceededError is one), and a message naming an
   out-of-memory condition;
-- TERMINAL: a CUDA error (a failed launch, an illegal address), checked
+- TERMINAL: a cancelled statement (util/cancel.py QueryCancelled,
+  checked first: its "statement timeout reached" must not read as a
+  transient fault, be retried, step the ladder down or trip a
+  breaker), a CUDA error (a failed launch, an illegal address), checked
   before the message tokens, and everything not listed;
 - RETRYABLE: an injected fault (util/fault.py InjectedFault), FlowRestart
   (surfaced only after the widening attempts ran out), ConnectionError,
   TimeoutError and the transient tokens.
 
-The metric registry's counters wait for util/metric.py (ROADMAP.md queue
-1, item 8); a retry counts in the per-query stats as
-`resilience.retry.<name>`.
+A retry counts in the metric registry (`sql_resilience_retries_total`,
+`sql_resilience_retry_backoff_seconds`), in the per-query stats as
+`resilience.retry.<name>` and as a `retry` event on the active trace
+span; `with_retry` polls the statement's cancel context before each
+backoff. The JAX package's RetriesExhausted wrapper is not used: the
+last error is raised again, unwrapped, in both packages' loops.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from typing import Callable, Optional, TypeVar
 
 import torch
 
+from cockroach_tpu_torch.util import cancel
 from cockroach_tpu_torch.util.settings import Settings
 
 # -------------------------------------------------------------- settings
@@ -76,6 +83,11 @@ _CUDA_ERROR_TOKENS = ("CUDA error", "illegal memory access",
 
 def classify(exc: BaseException) -> str:
     """One verdict per exception: RETRYABLE / RESOURCE / TERMINAL."""
+    if isinstance(exc, cancel.QueryCancelled):
+        # checked before the token matchers: the cancellation reason may
+        # mention "timeout", which must not read as a transient fault —
+        # a cancelled statement is dead, not retryable
+        return TERMINAL
     if isinstance(exc, (torch.cuda.OutOfMemoryError, MemoryError)):
         return RESOURCE
     from cockroach_tpu_torch.util.fault import InjectedFault
@@ -155,12 +167,28 @@ def with_retry(fn: Callable[[], T], opts: Optional[Options] = None,
             pause = next(backoffs, None)
             if pause is None:
                 raise  # retry budget exhausted: surface the last error
+            # a cancel/deadline must not sit out a backoff sleep: poll
+            # before committing to the pause (QueryCancelled is TERMINAL
+            # so it propagates out of the loop, not back into it)
+            cancel.checkpoint()
             record_retry(name, pause)
             opts.sleep(pause)
 
 
 def record_retry(name: str, pause: float) -> None:
-    """Count one retry in the per-query stats."""
+    """Count one retry in the metric registry, the per-query stats and
+    the active trace span (if a query is being traced)."""
     from cockroach_tpu_torch.exec import stats
+    from cockroach_tpu_torch.util import tracing
+    from cockroach_tpu_torch.util.metric import default_registry
 
+    reg = default_registry()
+    reg.counter("sql_resilience_retries_total",
+                "in-place retries of transient faults").inc()
+    reg.histogram(
+        "sql_resilience_retry_backoff_seconds",
+        "backoff slept before each retry",
+        buckets=(0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1.0, 5.0),
+    ).observe(pause)
     stats.add(f"resilience.retry.{name}", seconds=pause)
+    tracing.record("retry", name=name, backoff_s=round(pause, 4))

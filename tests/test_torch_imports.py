@@ -25,7 +25,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # statistics, window functions, row engine, binder, cost model and
 # placement, EXPLAIN, session, shell), and the storage layer (the
 # clock, fault injection, the engines, the store, the resident tier
-# and its visibility pass, YCSB): imported by name, so a module
+# and its visibility pass, YCSB), and the lifecycle seams (metrics,
+# logging, tracing, cancellation, admission, the query registry,
+# insights, the crdb_internal tables, the statement bundle): imported
+# by name, so a module
 # that goes missing fails here rather than being skipped by the package
 # walk
 SLICE_MODULES = ["ops.hash", "ops.prefix", "ops.search", "ops.rowmat",
@@ -42,7 +45,10 @@ SLICE_MODULES = ["ops.hash", "ops.prefix", "ops.search", "ops.rowmat",
                  "__main__", "util.hlc", "util.fault", "storage.engine",
                  "storage.mvcc", "storage.resident", "ops.mvcc_filter",
                  "workload.ycsb", "kv", "kv.txn", "kv.streamer", "server",
-                 "server.jobs", "coldata.carry"]
+                 "server.jobs", "coldata.carry", "util.metric",
+                 "util.log", "util.tracing", "util.cancel",
+                 "util.admission", "server.registry", "sql.insights",
+                 "sql.vtable", "server.debugzip"]
 
 
 def test_port_imports_no_jax_pyarrow_or_jax_package():

@@ -241,9 +241,22 @@ def test_sqlstats_lru_cap_matches_jax():
     assert st.stages["sqlstats.fingerprints_evicted"].rows == 2
 
 
-def test_crdb_internal_names_wait_for_the_virtual_tables(session):
-    with pytest.raises(BindError, match="crdb_internal"):
-        session.execute("select * from crdb_internal.statement_statistics")
+def test_crdb_internal_names_wait_for_the_virtual_tables(session, cats):
+    """crdb_internal names bind over the virtual tables (sql/vtable.py),
+    as in the JAX package: `*` is the binder's own error in both, and
+    named columns read back."""
+    from cockroach_tpu.sql.explain import execute_with_plan as jexec
+
+    for run in (session.execute,
+                lambda sql: jexec(sql, cats[0], CAP)):
+        with pytest.raises(Exception, match=r"unknown column '\*'"):
+            run("select * from crdb_internal.statement_statistics")
+    kind, res, _ = session.execute(
+        "select fingerprint, exec_count from "
+        "crdb_internal.statement_statistics")
+    assert kind == "rows"
+    assert [k for k in res if not k.endswith("__valid")] == \
+        ["fingerprint", "exec_count"]
 
 
 # ----------------------------------------------------------- placement --

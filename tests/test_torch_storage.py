@@ -441,7 +441,15 @@ def test_maybe_fail_after_and_probability():
         fault.maybe_fail("scan.resident")
     reg.disarm("scan.resident")
     fault.maybe_fail("scan.resident")
-    assert fault.KNOWN_POINTS == ("scan.resident", "alter.backfill_chunk")
+    # the points the port wires: the JAX package's, less those of the
+    # modules the port does not have yet (tests/test_torch_lifecycle_
+    # chaos.py checks each has its maybe_fail call)
+    from cockroach_tpu.util.fault import KNOWN_POINTS as JAX_POINTS
+
+    assert fault.KNOWN_POINTS == tuple(
+        p for p in JAX_POINTS if p not in (
+            "dist.a2a", "dtxn.before_resolve", "changefeed.emit",
+            "view.fold"))
 
 
 def test_durable_file_torn_append(tmp_path):
