@@ -259,9 +259,41 @@ Phases, each printed on lines of its own:
      by an armed delay fault is flagged slow in
      cluster_execution_insights and logged by the slow-query log (a
      MemorySink on SQL_EXEC).
-Then the whole run's seconds (`[15]`), one JSON line per query (Q1 and
+ 15. streaming and vector search (run_phase15) on CUDA, on native-engine
+     stores of their own (the scan-image cache's images held aside): (a)
+     a session table cf (k, grp, v) written in CF_BURSTS bursts of
+     CF_BURST_ROWS rows (INSERT_ROWS-row INSERTs), a ChangefeedStream
+     with a MemorySink polled after each: envelopes/s and the p50/p99 of
+     changefeed_frontier_lag_ns, one envelope per key equal to its row;
+     (b) views `select grp, count(*), sum(v) ... group by grp` over
+     bursts of FOLD_BURSTS rows: FOLD_RUNS refreshes by fold, then
+     FOLD_RUNS by `_rescan`, no re-scan during the folds, every read
+     equal to the session's GROUP BY; (c) TPC-H customer at SF 1
+     (session_load) under the views V_SEG and V_MM and a continuous
+     CREATE CHANGEFEED into a file sink (a poll every FEED_POLL_MS)
+     adopted on a background thread:
+     phase 13's UPDATE of nation UPDATE_NATION, PAUSE JOB, its DELETE
+     above DELETE_ABOVE, RESUME JOB, VIEW_CUSTOMERS new customers; both
+     views refreshed after each write and equal to the GROUP BY, V_SEG
+     re-scanned only at its build, V_MM re-scanned at each write that
+     retracts (MIN/MAX cannot fold a retraction) and folded at the
+     INSERT; the job caught up, cancelled, and its acked segments
+     replayed key by key onto the final table with no (key, ts) twice;
+     (d) workload/vectorbench.py `run` at bench.py's shape (VEC_N x
+     VEC_D, VEC_CLUSTERS clusters, nprobe VEC_NPROBE, VEC_QUERIES
+     queries, k VEC_K, from --seed) and its searchers rebuilt on the same
+     data: exact ids equal a float64 numpy oracle's up to ties, batched
+     equal to per-query bit for bit, recall@k at least
+     VEC_RECALL_FLOOR; (e) the same vectors as a session table docs (id,
+     grp, emb vector(VEC_D)): ORDER BY emb <-> q LIMIT k cold and warm
+     (a prepared hit, one replay, at most one sync), WHERE grp = 1, <=>,
+     then with sql.vector.ann_topk on (nprobe VEC_NPROBE) cold (an index
+     build) and warm (the cached index), and after an INSERT of
+     VEC_INSERT rows (one index append, no build); every answer equal to
+     the searchers' (ids up to float64 ties).
+Then the whole run's seconds (`[16]`), one JSON line per query (Q1 and
 phases 6 to 9), phase 10's JSON line, one `sql_<name>` JSON line per
-phase 11 record, phase 12's, phase 13's and phase 14's JSON lines, the
+phase 11 record, the JSON lines of phases 12 to 15, the
 JSON line of
 kernels (dense_sums' launches in the Q1 run, by path: Q1, Q12, Q4 and
 Q5, in the traced fused replays of Q1, Q4, Q5 and Q12, in the traced SQL
@@ -295,6 +327,7 @@ import statistics
 import subprocess
 import sys
 import time
+from decimal import Decimal
 
 import numpy as np
 
@@ -4672,6 +4705,540 @@ def run_phase14(torch, gen, dev, records11, profile_dir):
     return rec, k1_traced
 
 
+# ----------------------------------------------------------- phase 15
+
+CF_BURSTS = 10            # (a) write bursts, each polled once
+CF_BURST_ROWS = 1000      # (a) rows per burst
+FOLD_BURSTS = (1000, 10000)  # (b) rows per burst under the two views
+FOLD_RUNS = 3             # (b) fold refreshes, then re-scans, each
+VIEW_CUSTOMERS = 1000     # (c) new customers inserted
+FEED_POLL_MS = 100        # (c) the continuous job's pause between polls
+VEC_N, VEC_D, VEC_QUERIES = 100_000, 64, 64   # (d), (e): bench.py's shape
+VEC_CLUSTERS, VEC_NPROBE, VEC_K = 64, 8, 10
+VEC_RUNS = 3              # (d) per-query runs (median) and batched runs
+VEC_RECALL_FLOOR = 0.9
+VEC_INSERT = 1000         # (e) rows appended before the last ANN query
+VEC_TOL = 1e-5            # relative distance within which ids may swap
+V_SEG = ("select c_nationkey, c_mktsegment, count(*) as n, "
+         "sum(c_acctbal) as bal from customer group by c_nationkey, "
+         "c_mktsegment")
+V_MM = ("select c_nationkey, c_mktsegment, count(*) as n, "
+        "sum(c_acctbal) as bal, min(c_acctbal) as lo, max(c_acctbal) as hi "
+        "from customer group by c_nationkey, c_mktsegment")
+
+
+def decoded_rows(payload, schema, cols) -> list:
+    """Sorted row tuples of `cols`, string codes decoded through the
+    schema's dictionaries (a view and a GROUP BY may order differently)."""
+    out = []
+    for c in cols:
+        v = np.asarray(payload[c])
+        d = schema.dictionary(c) if schema is not None else None
+        out.append([str(d[x]) for x in v] if d is not None else v.tolist())
+    return sorted(zip(*out))
+
+
+def view_equals_groupby(session, view: str, sql: str, cols) -> bool:
+    """`select * from <view>` against the session's own GROUP BY over the
+    table, row for row: integer columns bit for bit."""
+    _k, got, gs = session.execute(f"select * from {view}")
+    _k, want, ws = session.execute(sql)
+    return decoded_rows(got, gs, cols) == decoded_rows(want, ws, cols)
+
+
+def ids_tie_equal(a, b, dist) -> bool:
+    """Equal id lists up to swaps between candidates whose float64
+    distances `dist[id]` lie within VEC_TOL of each other."""
+    for x, y in zip(np.asarray(a).tolist(), np.asarray(b).tolist()):
+        if x == y:
+            continue
+        if x < 0 or y < 0 or abs(dist[x] - dist[y]) > VEC_TOL * max(
+                abs(dist[x]), abs(dist[y]), 1e-12):
+            return False
+    return len(a) == len(b)
+
+
+def f64_distances(vecs, q, metric="l2"):
+    v = vecs.astype(np.float64)
+    q = np.asarray(q, np.float64)
+    if metric == "l2":
+        return np.sqrt(((v - q) ** 2).sum(1))
+    return 1.0 - (v @ q) / np.maximum(np.linalg.norm(v, axis=1)
+                                     * np.linalg.norm(q), 1e-30)
+
+
+def vec_text(v) -> str:
+    """A vector literal that parses back to the same float32 lanes."""
+    return "[" + ",".join(repr(float(x)) for x in np.asarray(v)) + "]"
+
+
+def docs_load(store, cat, vecs, groups):
+    """The vectors as a session table docs (id int primary key, grp int,
+    emb vector(d)) written the way session_load writes TPC-H: the row
+    codec straight into the engine (d slots of float32 bits per vector,
+    then the NULL bitmap)."""
+    from cockroach_tpu_torch.sql.session import TableDescriptor
+
+    n, d = vecs.shape
+    slots = {"grp": np.asarray(groups, np.int64)}
+    bits = vecs.view(np.uint32).astype(np.int64)
+    for j in range(d):
+        slots[f"emb_{j}"] = bits[:, j]
+    slots["__nulls"] = np.zeros(n, np.int64)
+    tid = cat._next_id()
+    store.ingest_table(tid, np.arange(n, dtype=np.int64), slots)
+    cat.save(TableDescriptor(
+        tid, "docs", [("id", "int"), ("grp", "int"),
+                      ("emb", f"vector({d})")], "id",
+        next_rowid=1, row_count=n, notnull=["id"]))
+
+
+def run_phase15(torch, gen, dev, seed):
+    """Streaming and vector search on the card: (a) changefeed emit over
+    CF_BURSTS bursts; (b) a view's fold against its re-scan at the
+    FOLD_BURSTS bursts; (c) two standing views and a file-sink changefeed
+    job over TPC-H customer through an UPDATE, a DELETE (the job paused
+    across it) and an INSERT; (d) workload/vectorbench.py `run` and the
+    searchers held to a float64 oracle and to themselves batched; (e) the
+    same vectors through SQL, exact and ANN. -> JSON record."""
+    import threading
+
+    from cockroach_tpu_torch.kv.rangefeed import _metrics as cf_metrics
+    from cockroach_tpu_torch.ops.vector import (
+        ExactSearcher, VectorIndex, recall_at_k,
+    )
+    from cockroach_tpu_torch.sql import changefeed as cfmod
+    from cockroach_tpu_torch.sql.session import Session, SessionCatalog
+    from cockroach_tpu_torch.storage.engine import NativeEngine
+    from cockroach_tpu_torch.storage.mvcc import MVCCStore
+    from cockroach_tpu_torch.util.hlc import HLC, Timestamp
+    from cockroach_tpu_torch.util.settings import (
+        Settings, VECTOR_ANN, VECTOR_NPROBE,
+    )
+    from cockroach_tpu_torch.workload import vectorbench
+
+    t_phase = time.perf_counter()
+    rec: dict = {"card": card_line(), "seed": seed}
+    part_s: dict = {}
+    rec["part_s"] = part_s
+    t_part = time.perf_counter()
+
+    def part_done(label):
+        nonlocal t_part
+        now = time.perf_counter()
+        part_s[label] = now - t_part
+        t_part = now
+
+    print(f"[15] streaming and vector search on {dev}", flush=True)
+    rng = np.random.default_rng(5)
+    store = MVCCStore(engine=NativeEngine(), clock=HLC(), device=dev)
+    cat = SessionCatalog(store)
+    session = Session(cat, capacity=1 << 13, device=dev)
+
+    def burst(table, start, n):
+        ks = np.arange(start, start + n)
+        grps = rng.integers(0, 64, n)
+        vs = rng.integers(0, 100_000, n)
+        for i in range(0, n, INSERT_ROWS):
+            vals = ",".join("(%d,%d,%d)" % (ks[j], grps[j], vs[j])
+                            for j in range(i, min(i + INSERT_ROWS, n)))
+            session.execute(f"insert into {table} values {vals}")
+        return {int(k): (int(g), int(v)) for k, g, v in zip(ks, grps, vs)}
+
+    # ---- (a) changefeed emit
+    session.execute("create table cf (k int primary key, grp int not null, "
+                    "v int)")
+    sink = cfmod.MemorySink()
+    stream = cfmod.ChangefeedStream(store, cat.desc("cf"), sink)
+    stream.poll()  # catch up on the empty table
+    inserted, emitted, emit_s, lags = {}, 0, 0.0, []
+    for b in range(CF_BURSTS):
+        inserted.update(burst("cf", b * CF_BURST_ROWS, CF_BURST_ROWS))
+        t0 = time.perf_counter()
+        emitted += stream.poll()
+        emit_s += time.perf_counter() - t0
+        lags.append(cf_metrics.frontier_lag_ns.value())
+    events = sink.events()
+    got = {e["key"]: (e["after"]["grp"], e["after"]["v"]) for e in events}
+    if (emitted != CF_BURSTS * CF_BURST_ROWS or len(events) != emitted
+            or len(got) != emitted or got != inserted
+            or any(e["op"] != "upsert" for e in events)):
+        raise SystemExit(f"(a) changefeed: {emitted} envelopes for "
+                         f"{len(inserted)} inserted rows, or an envelope "
+                         f"differs from its row")
+    lags.sort()
+    rec["changefeed"] = {
+        "envelopes": emitted, "emit_s": emit_s,
+        "envelopes_per_s": emitted / emit_s,
+        "frontier_lag_ns": lags,
+        "frontier_lag_p50_ns": lags[len(lags) // 2],
+        "frontier_lag_p99_ns": lags[min(len(lags) - 1,
+                                        int(len(lags) * 0.99))]}
+    print(f"  (a) changefeed: {emitted} envelopes in {CF_BURSTS} polls, "
+          f"{emitted / emit_s:.0f} envelopes/s, frontier lag p50 "
+          f"{rec['changefeed']['frontier_lag_p50_ns'] / 1e6:.3f} ms p99 "
+          f"{rec['changefeed']['frontier_lag_p99_ns'] / 1e6:.3f} ms; every "
+          f"envelope equal to its inserted row", flush=True)
+    part_done("a")
+
+    # ---- (b) the view fold against its re-scan
+    folds: dict = {}
+    for n in FOLD_BURSTS:
+        t = f"cfv{n}"
+        session.execute(f"create table {t} (k int primary key, "
+                        "grp int not null, v int)")
+        vsql = f"select grp, count(*) as c, sum(v) as s from {t} group by grp"
+        session.execute(f"create materialized view m{n} as {vsql}")
+        mgr = session._matviews()
+        burst(t, 0, n)
+        session.execute(f"refresh materialized view m{n}")
+        r0 = mgr.report()[f"m{n}"]["rescans"]
+        fold_ms, start = [], n
+        for i in range(FOLD_RUNS):
+            burst(t, start, n)
+            start += n
+            t0 = time.perf_counter()
+            session.execute(f"refresh materialized view m{n}")
+            fold_ms.append((time.perf_counter() - t0) * 1e3)
+            if not view_equals_groupby(session, f"m{n}", vsql,
+                                       ("grp", "c", "s")):
+                raise SystemExit(f"(b) m{n} after fold {i + 1} differs "
+                                 f"from the GROUP BY")
+        rep = mgr.report()[f"m{n}"]
+        during = rep["rescans"] - r0
+        mv = mgr.get(f"m{n}")
+        rescan_ms = []
+        for _ in range(FOLD_RUNS):
+            t0 = time.perf_counter()
+            mv._rescan(store.clock.now())
+            rescan_ms.append((time.perf_counter() - t0) * 1e3)
+        if during != 0 or not view_equals_groupby(session, f"m{n}", vsql,
+                                                  ("grp", "c", "s")):
+            raise SystemExit(f"(b) m{n}: {during} re-scans during the "
+                             f"folds, or the re-scanned view differs")
+        folds[str(n)] = {
+            "fold_refresh_ms": fold_ms, "rescan_refresh_ms": rescan_ms,
+            "fold_vs_rescan": statistics.median(rescan_ms)
+            / statistics.median(fold_ms),
+            "rescans_during_folds": during,
+            "state_bytes": mv.state.nbytes()}
+        print(f"  (b) {n}-row bursts: refresh by fold {fold_ms} ms, by "
+              f"re-scan {rescan_ms} ms ({folds[str(n)]['fold_vs_rescan']:.2f}"
+              f"x), 0 re-scans during the folds, every read equal to the "
+              f"GROUP BY", flush=True)
+    rec["fold"] = folds
+    part_done("b")
+
+    # ---- (c) standing views and a changefeed job over TPC-H customer
+    store = MVCCStore(engine=NativeEngine(), clock=HLC(), device=dev)
+    cat, load_s = session_load(gen, store, ("customer",))
+    session = Session(cat, capacity=CAPACITY, device=dev)
+    mgr = session._matviews()
+    seg_cols = ("c_nationkey", "c_mktsegment", "n", "bal")
+    mm_cols = seg_cols + ("lo", "hi")
+    views = {"v_seg": (V_SEG, seg_cols), "v_mm": (V_MM, mm_cols)}
+    first_s = {}
+    for name, (vsql, _c) in views.items():
+        t0 = time.perf_counter()
+        session.execute(f"create materialized view {name} as {vsql}")
+        first_s[name] = time.perf_counter() - t0
+
+    def check_views(label):
+        for name, (vsql, cols) in views.items():
+            if not view_equals_groupby(session, name, vsql, cols):
+                raise SystemExit(f"(c) {name} after {label} differs from "
+                                 f"the GROUP BY over customer")
+
+    check_views("its first build")
+    feed_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "build", "phase15_feed")
+    if os.path.isdir(feed_dir):
+        for f in os.listdir(feed_dir):
+            os.unlink(os.path.join(feed_dir, f))
+    t_job = time.perf_counter()
+    _k, payload, _s = session.execute(
+        f"create changefeed for table customer with sink = 'file:{feed_dir}'"
+        f", poll_interval_ms = {FEED_POLL_MS}, run = false")
+    job_id = int(payload["job_id"][0])
+    reg = session._jobs_registry()
+
+    def adopt():
+        th = threading.Thread(target=reg.adopt_and_run, daemon=True)
+        th.start()
+        return th
+
+    def stop(th, label):
+        th.join(timeout=120)
+        if th.is_alive():
+            raise SystemExit(f"(c) the changefeed job did not stop at "
+                             f"{label}")
+
+    adopter = adopt()
+    c_tab = gen.table("customer")
+    c_key = np.asarray(c_tab["c_custkey"], np.int64)
+    writes: dict = {}
+
+    def write(label, sql_list, delta_rows):
+        t0 = time.perf_counter()
+        for s in sql_list:
+            session.execute(s)
+        w = {"write_s": time.perf_counter() - t0}
+        before = {n: (mgr.get(n).folds, mgr.get(n).rescans) for n in views}
+        for name in views:
+            t0 = time.perf_counter()
+            session.execute(f"refresh materialized view {name}")
+            w[f"{name}_refresh_ms"] = (time.perf_counter() - t0) * 1e3
+            mv = mgr.get(name)
+            w[f"{name}_how"] = ("fold" if mv.folds > before[name][0]
+                                else "rescan" if mv.rescans
+                                > before[name][1] else "idle")
+        w["delta_rows"] = delta_rows
+        check_views(label)
+        writes[label] = w
+        print(f"  (c) {label} ({delta_rows} delta rows): write "
+              f"{w['write_s']:.2f} s; v_seg "
+              f"{w['v_seg_how']} {w['v_seg_refresh_ms']:.1f} ms, v_mm "
+              f"{w['v_mm_how']} {w['v_mm_refresh_ms']:.1f} ms; both equal "
+              f"to the GROUP BY", flush=True)
+
+    n_upd = int((np.asarray(c_tab["c_nationkey"]) == UPDATE_NATION).sum())
+    # an UPDATE folds each row out at its old value and in at its new
+    write("update", [f"update customer set c_acctbal = c_acctbal + 1 "
+                     f"where c_nationkey = {UPDATE_NATION}"], 2 * n_upd)
+    session.execute(f"pause job {job_id}")
+    stop(adopter, "the pause")
+    paused_state = reg.get(job_id).state
+    n_del = int((c_key > DELETE_ABOVE).sum())
+    write("delete", [f"delete from customer where c_custkey > "
+                     f"{DELETE_ABOVE}"], n_del)
+    session.execute(f"resume job {job_id}")
+    adopter = adopt()
+    first_key = int(c_key.max()) + 1
+    new = {f.name: (np.arange(first_key, first_key + VIEW_CUSTOMERS,
+                              dtype=np.int64) if f.name == "c_custkey"
+                    else rng.choice(np.asarray(c_tab[f.name], np.int64),
+                                    VIEW_CUSTOMERS))
+           for f in gen.schema("customer")}
+    write("insert", insert_statements(gen, "customer", new), VIEW_CUSTOMERS)
+    horizon = store.clock.now()
+    deadline = time.perf_counter() + 300
+    while True:
+        prog = reg.get(job_id).progress or {}
+        if Timestamp(*prog.get("frontier", [0, 0])) >= horizon:
+            break
+        if time.perf_counter() > deadline or not adopter.is_alive():
+            raise SystemExit(f"(c) the changefeed job stopped short of the "
+                             f"last write: {reg.get(job_id)}")
+        time.sleep(0.01)
+    job_s = time.perf_counter() - t_job
+    session.execute(f"cancel job {job_id}")
+    stop(adopter, "the cancel")
+    acked = cfmod.FileSink.read_events(feed_dir)
+    seen, state = set(), {}
+    for e in sorted(acked, key=lambda e: tuple(e["ts"])):
+        k = (e["key"], tuple(e["ts"]))
+        if k in seen:
+            raise SystemExit(f"(c) the changefeed emitted {k} twice")
+        seen.add(k)
+        if e["op"] == "delete":
+            state.pop(e["key"], None)
+        else:
+            a = e["after"]
+            state[e["key"]] = (a["c_nationkey"], a["c_acctbal"],
+                               a["c_mktsegment"])
+    _k, res, sch = session.execute("select c_custkey, c_nationkey, "
+                                   "c_acctbal, c_mktsegment from customer")
+    seg = sch.dictionary("c_mktsegment")
+    table = {int(k): (int(n), str(Decimal(int(b)).scaleb(-2)), str(seg[s]))
+             for k, n, b, s in zip(*(np.asarray(res[c]) for c in (
+                 "c_custkey", "c_nationkey", "c_acctbal", "c_mktsegment")))}
+    if state != table:
+        bad = sorted(set(state.items()) ^ set(table.items()))[:3]
+        raise SystemExit(f"(c) the file sink's events replayed differ from "
+                         f"the final table: {bad}")
+    rep = mgr.report()
+    if rep["v_seg"]["rescans"] != 1 or rep["v_seg"]["folds"] != 3:
+        raise SystemExit(f"(c) v_seg: {rep['v_seg']}, expected one re-scan "
+                         f"(its build) and three folds")
+    # MIN/MAX cannot fold a retraction: the UPDATE and the DELETE both
+    # retract rows, so v_mm re-scans at each; the INSERT folds
+    if (rep["v_mm"]["rescans"] != 3 or rep["v_mm"]["folds"] != 1
+            or writes["delete"]["v_mm_how"] != "rescan"
+            or writes["insert"]["v_mm_how"] != "fold"):
+        raise SystemExit(f"(c) v_mm: {rep['v_mm']}, {writes}: expected "
+                         f"re-scans at its build, the UPDATE and the DELETE "
+                         f"and a fold at the INSERT")
+    rec["views"] = {
+        "load_s": load_s["customer"], "first_build_s": first_s,
+        "writes": writes, "report": rep,
+        "rows": {"update": n_upd, "delete": n_del,
+                 "insert": VIEW_CUSTOMERS},
+        "state_bytes": {n: mgr.get(n).state.nbytes() for n in views},
+        "groups": {n: len(mgr.get(n).state.keys) for n in views},
+        "job": {"envelopes": len(acked), "seconds": job_s,
+                "paused_state": paused_state,
+                "final_state": reg.get(job_id).state,
+                "segments": len(os.listdir(feed_dir))}}
+    print(f"  (c) customer ({store.engine.__class__.__name__}): first builds "
+          f"{ {k: round(v, 2) for k, v in first_s.items()} } s, "
+          f"{rec['views']['groups']} groups, state bytes "
+          f"{rec['views']['state_bytes']}; the job ({paused_state} across "
+          f"the DELETE) acked {len(acked)} envelopes in {job_s:.1f} s, "
+          f"replayed exactly once onto the final table", flush=True)
+    del session, mgr, reg
+    torch.cuda.empty_cache()
+    part_done("c")
+
+    # ---- (d) vector search at bench.py's shape
+    block = vectorbench.run(n=VEC_N, d=VEC_D, n_queries=VEC_QUERIES,
+                            k=VEC_K, n_clusters=VEC_CLUSTERS,
+                            nprobe=VEC_NPROBE, runs=VEC_RUNS, seed=seed,
+                            device=dev)
+    vrng = np.random.default_rng(seed)
+    vecs, _assign = vectorbench.make_dataset(VEC_N, VEC_D, VEC_CLUSTERS, vrng)
+    qs = vectorbench.make_queries(vecs, VEC_QUERIES, vrng)
+    exact = ExactSearcher(vecs, "l2", VEC_K, device=dev)
+    index = VectorIndex.build(vecs, "l2", n_clusters=VEC_CLUSTERS,
+                              device=dev)
+    ex_ids, ex_d = exact.search_batch(qs, batch_size=VEC_QUERIES)
+    an_ids, an_d = index.search_batch(qs, k=VEC_K, nprobe=VEC_NPROBE,
+                                      batch_size=VEC_QUERIES)
+    dists = [f64_distances(vecs, q) for q in qs]
+    for i, q in enumerate(qs):
+        oracle = np.argsort(dists[i], kind="stable")[:VEC_K]
+        if not ids_tie_equal(ex_ids[i], oracle, dists[i]):
+            raise SystemExit(f"(d) exact query {i}: {ex_ids[i]} against "
+                             f"the float64 oracle's {oracle}")
+        for searcher, ids, d in (
+                (lambda x: exact.search(x), ex_ids, ex_d),
+                (lambda x: index.search(x, VEC_K, VEC_NPROBE), an_ids,
+                 an_d)):
+            one_ids, one_d = searcher(q)
+            if not (np.array_equal(one_ids, ids[i]) and np.array_equal(
+                    one_d.view(np.int32), d[i].view(np.int32))):
+                raise SystemExit(f"(d) query {i}: batched differs from "
+                                 f"per-query")
+    recall = recall_at_k(an_ids, ex_ids)
+    if recall < VEC_RECALL_FLOOR or block["recall_at_k"] < VEC_RECALL_FLOOR:
+        raise SystemExit(f"(d) recall@{VEC_K} {recall}, bench "
+                         f"{block['recall_at_k']}: below {VEC_RECALL_FLOOR}")
+    block.update(recall_here=recall, image_bytes=exact.nbytes(),
+                 index_bytes=index.nbytes(), index_m=index.m)
+    rec["vector"] = block
+    print(f"  (d) vectors n={VEC_N} d={VEC_D}: recall@{VEC_K} "
+          f"{block['recall_at_k']}, exact p50/p99 {block['exact_p50_ms']}/"
+          f"{block['exact_p99_ms']} ms, ANN {block['ann_p50_ms']}/"
+          f"{block['ann_p99_ms']} ms, batched {block['exact_queries_per_sec']}"
+          f"/{block['ann_queries_per_sec']} q/s, build "
+          f"{block['index_build_s']} s, image {exact.nbytes()} B, index "
+          f"{index.nbytes()} B; exact ids equal the float64 oracle's, "
+          f"batched equal per-query bit for bit", flush=True)
+    part_done("d")
+
+    # ---- (e) the same vectors through SQL
+    settings = Settings()
+    prev = (settings.get(VECTOR_ANN), settings.get(VECTOR_NPROBE))
+    store = MVCCStore(engine=NativeEngine(), clock=HLC(), device=dev)
+    cat = SessionCatalog(store)
+    groups = np.arange(VEC_N, dtype=np.int64) % 3
+    t0 = time.perf_counter()
+    docs_load(store, cat, vecs, groups)
+    sql_rec: dict = {"load_s": time.perf_counter() - t0}
+    session = Session(cat, capacity=CAPACITY, device=dev)
+    q = qs[0]
+    d0 = dists[0]
+    ex_text = (f"select id from docs order by emb <-> '{vec_text(q)}' "
+               f"limit {VEC_K}")
+
+    def run(label, text, check):
+        res, dt, syncs, ev, parses, _l = session_run(torch, session, text)
+        ids = np.asarray(res["id"])
+        check(label, ids)
+        sql_rec[label] = {"s": dt, "syncs": syncs,
+                          "events": {k: v for k, v in ev.items()
+                                     if k.startswith(("vector.", "fused.",
+                                                      "sql."))}}
+        return ev, parses, syncs
+
+    def same_as(want, dist):
+        def check(label, ids):
+            if not (np.array_equal(ids, want)
+                    or ids_tie_equal(ids, want, dist)):
+                raise SystemExit(f"(e) {label}: {ids.tolist()} against "
+                                 f"{np.asarray(want).tolist()}")
+        return check
+
+    run("exact_cold", ex_text, same_as(ex_ids[0], d0))
+    ev, parses, syncs = run("exact_warm", ex_text, same_as(ex_ids[0], d0))
+    check_warm_hit("(e) exact warm", session._prepared[ex_text].op.
+                   _fused_runner, ev, parses, syncs)
+    mask = groups == 1
+    sub = np.flatnonzero(mask)
+    f_ids, _fd = ExactSearcher(vecs[mask], "l2", VEC_K,
+                               device=dev).search(q)
+    run("filtered", f"select id from docs where grp = 1 order by emb <-> "
+        f"'{vec_text(q)}' limit {VEC_K}", same_as(sub[f_ids], d0))
+    cos_d = f64_distances(vecs, q, "cos")
+    c_ids, _cd = ExactSearcher(vecs, "cos", VEC_K, device=dev).search(q)
+    run("cosine", f"select id from docs order by emb <=> '{vec_text(q)}' "
+        f"limit {VEC_K}", same_as(c_ids, cos_d))
+    # ANN: the setting is process-wide and a prepared entry keeps the plan
+    # it was built with, so the cache is cleared where it changes
+    settings.set(VECTOR_ANN, True)
+    settings.set(VECTOR_NPROBE, VEC_NPROBE)
+    try:
+        with session._prepared_mu:
+            session._prepared.clear()
+        ann_index = VectorIndex.build(vecs, "l2", device=dev)
+        a_ids, _ad = ann_index.search(q, VEC_K, VEC_NPROBE)
+        ev, _p, _s = run("ann_cold", ex_text, same_as(a_ids, d0))
+        if ev.get("vector.index_build") != 1:
+            raise SystemExit(f"(e) ANN cold: {ev}, expected one index build")
+        ev, _p, _s = run("ann_warm", ex_text, same_as(a_ids, d0))
+        if ev.get("vector.index_build") or ev.get("vector.index_hit") != 1:
+            raise SystemExit(f"(e) ANN warm: {ev}, expected the cached index")
+        extra, _e = vectorbench.make_dataset(VEC_INSERT, VEC_D, VEC_CLUSTERS,
+                                             np.random.default_rng(seed + 1))
+        rows = [f"({VEC_N + i}, {i % 3}, '{vec_text(v)}')"
+                for i, v in enumerate(extra)]
+        t0 = time.perf_counter()
+        for a in range(0, len(rows), INSERT_ROWS):
+            session.execute("insert into docs values "
+                            + ", ".join(rows[a:a + INSERT_ROWS]))
+        sql_rec["insert_s"] = time.perf_counter() - t0
+        ann_index.append(extra, start_id=VEC_N)
+        a_ids, _ad = ann_index.search(q, VEC_K, VEC_NPROBE)
+        all_d = np.concatenate([d0, f64_distances(extra, q)])
+        ev, _p, _s = run("ann_after_insert", ex_text, same_as(a_ids, all_d))
+        if ev.get("vector.index_append") != 1 or ev.get("vector.index_build"):
+            raise SystemExit(f"(e) ANN after the INSERT: {ev}, expected one "
+                             f"append and no build")
+        sql_rec["ann_index_bytes"] = ann_index.nbytes()
+        sql_rec["ann_clusters"] = ann_index.n_clusters
+    finally:
+        settings.set(VECTOR_ANN, prev[0])
+        settings.set(VECTOR_NPROBE, prev[1])
+    rec["vector_sql"] = sql_rec
+    print(f"  (e) docs ({VEC_N} rows, vector({VEC_D})) through SQL: exact "
+          f"cold {sql_rec['exact_cold']['s'] * 1e3:.1f} ms, warm "
+          f"{sql_rec['exact_warm']['s'] * 1e3:.2f} ms (one replay, "
+          f"{sql_rec['exact_warm']['syncs']} sync), filtered "
+          f"{sql_rec['filtered']['s'] * 1e3:.1f} ms, <=> "
+          f"{sql_rec['cosine']['s'] * 1e3:.1f} ms; ANN cold "
+          f"{sql_rec['ann_cold']['s'] * 1e3:.1f} ms (index build), warm "
+          f"{sql_rec['ann_warm']['s'] * 1e3:.2f} ms, after an INSERT of "
+          f"{VEC_INSERT} rows {sql_rec['ann_after_insert']['s'] * 1e3:.1f} "
+          f"ms (one append, no build); every answer equal to the searchers'",
+          flush=True)
+    del session
+    torch.cuda.empty_cache()
+    part_done("e")
+    rec["seconds"] = time.perf_counter() - t_phase
+    print(f"  phase 15: {rec['seconds']:.1f} s, by part "
+          f"{ {k: round(v, 1) for k, v in part_s.items()} }", flush=True)
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", metavar="DIR",
@@ -4681,8 +5248,9 @@ def main() -> int:
                     help="phase 11 (b): traced warm replays of each SQL "
                     "text that runs K1 (default 1)")
     ap.add_argument("--seed", type=int, default=19940211,
-                    help="phase 13: the seed of RF1's rows and the point "
-                    "lookups' keys (default 19940211)")
+                    help="phases 13 and 15: the seed of RF1's rows, the "
+                    "point lookups' keys and the vector data (default "
+                    "19940211)")
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -4863,6 +5431,12 @@ def main() -> int:
     # ---- 14. the lifecycle seams, over phase 11's images
     records14, k1_traced_session = run_phase14(torch, gen, dev, records11,
                                                args.profile)
+    # ---- 15. streaming and vector search, on stores of their own
+    cached_images = scan_image_cache().snapshot()
+    scan_image_cache().clear()
+    records15 = run_phase15(torch, gen, dev, args.seed)
+    scan_image_cache().restore(cached_images)
+    del cached_images
 
     kernels = [{
         "name": "dense_sums",
@@ -4888,7 +5462,7 @@ def main() -> int:
         "library_ms": library_ms,
         "at_shapes": {"q1": q1_shape, **k1_shapes, **fused_shapes},
     }]
-    print(f"[15] whole run {time.perf_counter() - t_start:.1f} s",
+    print(f"[16] whole run {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"q1": q1_record}))
     for name in PHASE6 + PHASE7 + PHASE8:
@@ -4899,6 +5473,7 @@ def main() -> int:
     print(json.dumps({"phase12": records12}))
     print(json.dumps({"phase13": records13}))
     print(json.dumps({"phase14": records14}))
+    print(json.dumps({"phase15": records15}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,9 @@ hands those in, so both packages compute on the same state. An MVCC store
 crosses whole (`carry_store`): the port rebuilds it from the JAX
 engine's export of every version. A JAX session's tables cross as their
 spans (`carry_session_store`): the descriptor keyspace, each live
-table's rows, its secondary indexes and its statistics.
+table's rows, its secondary indexes and its statistics. A materialized
+view's group state (`carry_group_state`) and a clustered vector index
+(`carry_vector_index`) cross as their device arrays.
 """
 
 from __future__ import annotations
@@ -123,3 +125,54 @@ def carry_session_store(jax_store, device=None, clock=None):
         wall = max((ts.wall for _k, ts, _v in entries), default=0)
         clock = HLC(ManualClock(wall + 1))
     return MVCCStore(engine=engine, clock=clock, device=device)
+
+
+def carry_group_state(jax_state, device):
+    """The port's ops/view_fold.py GroupState holding a JAX GroupState's
+    state: its sorted packed keys, capacity, fold counters and the five
+    int64 lanes (counts (G,), acnt/asum/amin/amax (A, G)), read with
+    np.asarray and placed on `device` with their shapes and dtypes."""
+    from cockroach_tpu_torch.ops.view_fold import GroupState
+
+    st = GroupState(int(jax_state.n_inputs), device)
+    st.keys = np.array(jax_state.keys, dtype=np.int64, copy=True)
+    st.gcap = int(jax_state.gcap)
+    st.folds = int(jax_state.folds)
+    st.generation = int(jax_state.generation)
+
+    def lane(a):
+        arr = np.array(a, copy=True)
+        if arr.dtype != np.int64:
+            raise TypeError(f"group state lane of dtype {arr.dtype}")
+        return torch.from_numpy(arr).to(st.device)
+
+    (st.counts, st.acnt, st.asum, st.amin, st.amax) = (
+        lane(jax_state.counts), lane(jax_state.acnt),
+        lane(jax_state.asum), lane(jax_state.amin), lane(jax_state.amax))
+    return st
+
+
+def carry_vector_index(jax_index, device):
+    """The port's ops/vector.py VectorIndex holding a JAX VectorIndex:
+    centroids (C, d) float32, member ids (C, m) int32, member vectors
+    (C, m, d) float32 and validity (C, m) bool, read with np.asarray and
+    placed on `device` with their shapes and dtypes, plus its metric, row
+    count and appended-row count."""
+    from cockroach_tpu_torch.ops.vector import VectorIndex
+
+    dev = torch.device(device)
+
+    def t(a, dtype):
+        arr = np.array(a, copy=True)
+        if arr.dtype != dtype:
+            raise TypeError(f"index array of dtype {arr.dtype}, "
+                            f"expected {np.dtype(dtype)}")
+        return torch.from_numpy(arr).to(dev)
+
+    idx = VectorIndex(t(jax_index.centroids, np.float32),
+                      t(jax_index.member_ids, np.int32),
+                      t(jax_index.member_vecs, np.float32),
+                      t(jax_index.member_valid, np.bool_),
+                      jax_index.metric, int(jax_index.n))
+    idx.appended = int(jax_index.appended)
+    return idx

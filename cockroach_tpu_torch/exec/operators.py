@@ -5,8 +5,8 @@ paths of the fifteen TPC-H queries and the SQL front end: ScanOp ->
 MapOp (filter, projection) -> HashAggOp (the dense route, the
 range-dense route, the sort route with its scalar case, and the grace
 GROUP BY), OrderedAggOp, JoinOp (with the grace join), ShrinkOp,
-DistinctOp, SortOp (in memory or external), WindowOp, TopKOp and
-LimitOp (the row engine's RowMapOp is in exec/rowexec.py). An operator
+DistinctOp, SortOp (in memory or external), WindowOp, TopKOp, LimitOp
+and VectorANNOp (the row engine's RowMapOp is in exec/rowexec.py). An operator
 yields Batches on the device that `collect` names. `run_flow` drives a
 flow down the degradation ladder: the fused whole-query program of
 exec/fused.py (one CUDA graph per query on a card) when the tree fits
@@ -1532,6 +1532,175 @@ class DistinctOp(Operator):
 
 
 # ------------------------------------------------------------------ walking
+
+class VectorANNOp(Operator):
+    """Clustered-ANN vector top-K over a bare scan (the approximate arm
+    of the VectorTopK plan node). Builds an IVF-flat VectorIndex
+    (ops/vector.py) on the device from the scan's rows and probes it once
+    per query; the index, with the host copies of the scanned columns,
+    is cached in the scan-image cache under the scan's content identity
+    (`cache_key + ("vecindex", column, metric)`, then the device), so a
+    write's version rotation invalidates it exactly like a scan image.
+
+    Live maintenance: a version rotation caused by append-only writes
+    (the previous vector image is a bit-identical prefix of the new one)
+    does not rebuild: the new rows join their nearest centroids through
+    VectorIndex.append, and only past DRIFT_REBUILD appended fraction
+    does the index re-cluster from scratch. The fused tracer declines
+    this operator; it runs on the streaming tier."""
+
+    # live-maintenance tier: the last built (vectors, index) pair per
+    # table/column, keyed by the write-stable cache-key prefix ("mvcc",
+    # engine, tid) so an INSERT finds it after the versioned key rotates
+    _live: Dict[tuple, tuple] = {}
+    DRIFT_REBUILD = 0.25  # appended fraction past which we re-cluster
+
+    def __init__(self, child: Operator, column: str,
+                 query: Sequence[float], metric: str, k: int,
+                 nprobe: int = 4):
+        self.child = child
+        self.column = column
+        self.query = tuple(float(x) for x in query)
+        self.metric = metric
+        self.k = int(k)
+        self.nprobe = int(nprobe)
+        self.schema = child.schema
+        self.n_clusters: Optional[int] = None  # stamped after build
+
+    def _scan(self) -> Optional[ScanOp]:
+        base = self.child
+        while not isinstance(base, ScanOp):
+            nxt = getattr(base, "child", None)
+            if nxt is None:
+                return None
+            base = nxt
+        return base
+
+    def _materialize(self, device: torch.device):
+        """-> (VectorIndex, {name: np values}, {name: np validity|None},
+        n_rows), cached across statements under the scan's content key."""
+        from cockroach_tpu_torch.exec.scan_cache import scan_image_cache
+        from cockroach_tpu_torch.ops.vector import VectorIndex
+
+        scan = self._scan()
+        key = None
+        if scan is not None and scan.cache_key is not None:
+            key = tuple(scan.cache_key) + ("vecindex", self.column,
+                                           self.metric,
+                                           _device_key(device))
+            hit = scan_image_cache().get(key)
+            if hit is not None:
+                stats.add("vector.index_hit")
+                return hit
+        names = self.schema.names()
+        vals: Dict[str, list] = {n: [] for n in names}
+        valids: Dict[str, list] = {n: [] for n in names}
+        for b in self.child.batches(device):
+            sel = b.sel
+            vc = b.columns[self.column]
+            if vc.validity is not None:
+                # NULL embeddings are unsearchable: keep them out of the
+                # index (and of the gathered result rows)
+                sel = sel & vc.validity
+            for name in names:
+                c = b.columns[name]
+                vals[name].append(c.values[sel])
+                valids[name].append(
+                    None if c.validity is None else c.validity[sel])
+        # one readback of the scanned rows
+        host_vals = {}
+        host_valid = {}
+        for name in names:
+            parts = vals[name]
+            host_vals[name] = (torch.cat(parts).cpu().numpy() if parts
+                               else np.empty((0,)))
+            vparts = valids[name]
+            host_valid[name] = (
+                None if not vparts or any(v is None for v in vparts)
+                else torch.cat(vparts).cpu().numpy())
+        n_rows = len(host_vals[self.column])
+        index = None
+        live_key = (None if key is None
+                    else tuple(key[:3]) + ("veclive", self.column,
+                                           self.metric,
+                                           _device_key(device)))
+        if n_rows:
+            new_vecs = host_vals[self.column]
+            index = self._maintain(live_key, new_vecs, n_rows)
+            if index is None:
+                with _tracing.child_span("vector.index_build",
+                                         rows=n_rows):
+                    index = VectorIndex.build(new_vecs, metric=self.metric,
+                                              device=device)
+                stats.add("vector.index_build", rows=n_rows, events=1)
+            if live_key is not None:
+                if len(self._live) > 64:  # bound host-side vec copies
+                    self._live.clear()
+                self._live[live_key] = (new_vecs, index)
+        value = (index, host_vals, host_valid, n_rows)
+        if key is not None and index is not None:
+            nbytes = index.nbytes() + sum(
+                int(a.nbytes) for a in host_vals.values())
+            scan_image_cache().put(key, value, nbytes)
+        return value
+
+    def _maintain(self, live_key, new_vecs: np.ndarray, n_rows: int):
+        """INSERT path: when the previous build's vector image is a
+        bit-identical prefix of the current one (append-only writes, no
+        update/delete reordering the scan) and centroid drift stays
+        under DRIFT_REBUILD, extend the existing index incrementally
+        (members join their nearest centroid) instead of re-clustering.
+        Returns the maintained index, or None to rebuild."""
+        if live_key is None:
+            return None
+        hit = self._live.get(live_key)
+        if hit is None:
+            return None
+        old_vecs, index = hit
+        old_n = len(old_vecs)
+        fresh = n_rows - old_n
+        if (fresh < 0 or index.n != old_n
+                or not np.array_equal(new_vecs[:old_n], old_vecs)):
+            return None  # update/delete (or another feed) reshaped rows
+        if fresh == 0:
+            return index
+        if (index.appended + fresh) / float(n_rows) > self.DRIFT_REBUILD:
+            stats.add("vector.index_drift_rebuild", rows=n_rows,
+                      events=1)
+            return None
+        with _tracing.child_span("vector.index_append", rows=fresh):
+            index.append(new_vecs[old_n:], start_id=old_n)
+        stats.add("vector.index_append", rows=fresh, events=1)
+        return index
+
+    def batches(self, device: torch.device) -> Iterator[Batch]:
+        index, host_vals, host_valid, n_rows = self._materialize(device)
+        if index is None or n_rows == 0:
+            return
+        self.n_clusters = index.n_clusters
+        with _tracing.child_span("vector.ann.search", k=self.k,
+                                 nprobe=self.nprobe,
+                                 clusters=index.n_clusters):
+            ids, _dists = index.search(np.asarray(self.query, np.float32),
+                                       k=self.k, nprobe=self.nprobe)
+        stats.add("vector.ann_search", rows=self.k, events=1)
+        ok = ids >= 0
+        safe = np.where(ok, ids, 0)
+
+        def dev(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+        cols = {}
+        for name in self.schema.names():
+            validity = host_valid[name]
+            cols[name] = Column(
+                dev(host_vals[name][safe]),
+                None if validity is None else dev(validity[safe]))
+        sel = dev(ok)
+        yield Batch(mask_padding(cols, sel), sel,
+                    torch.full((), int(ok.sum()), dtype=torch.int32,
+                               device=device))
+
 
 def child_operators(op: Operator) -> List[Operator]:
     """Direct children of an operator node."""

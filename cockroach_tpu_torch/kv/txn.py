@@ -152,7 +152,9 @@ class Txn:
         if not self._writes:
             self.commit_ts = self.start_ts
             return self.commit_ts
-        with self.db._commit_mu:
+        # the store's write window: a changefeed or view horizon taken
+        # meanwhile waits until every version below is written
+        with self.db._commit_mu, self.db.store.write_window():
             self._validate()
             ts = self.db.store.clock.now()
             for (t, pk), fields in self._writes.items():

@@ -38,8 +38,10 @@ the port makes explicit:
 StrFunc is not evaluated here, as in the JAX package: a computed string
 is a new string that the row engine mints on the host (exec/rowexec.py
 eval_datum), and the planner sends every projection that computes one
-there. VecLit and VecDistance (ops/vector.py) are not ported: their
-evaluation raises, naming its ROADMAP.md item.
+there. VecLit broadcasts its query vector to (capacity, d), and
+VecDistance evaluates ops/vector.py's `l2_distance`/`cosine_distance`
+rowwise, the functions the searchers use, so the exact SQL path and
+the searchers agree bit for bit.
 """
 
 from __future__ import annotations
@@ -59,8 +61,6 @@ from cockroach_tpu_torch.coldata.batch import (
 
 # where each JAX expression node that is not ported yet is queued
 _NOT_PORTED = "not ported yet (ROADMAP.md queue 1)"
-_VECTORS_NOT_PORTED = ("vector expressions are not ported yet (ROADMAP.md "
-                       "queue 1, item 8: vectors)")
 
 
 class Expr:
@@ -232,7 +232,7 @@ class Extract(Expr):
 
 @dataclass(frozen=True, eq=False)
 class VecLit(Expr):
-    """Constant query vector (not evaluated by the port yet)."""
+    """Constant query vector, broadcast to every lane."""
 
     values: Tuple[float, ...]
 
@@ -242,7 +242,8 @@ class VecLit(Expr):
 
 @dataclass(frozen=True, eq=False)
 class VecDistance(Expr):
-    """`<->` / `<=>` between vectors (not evaluated by the port yet)."""
+    """`<->` (Euclidean) / `<=>` (cosine distance) between a VECTOR
+    column and a query vector (VecLit or another VECTOR column)."""
 
     metric: str  # "l2" | "cos"
     left: Expr
@@ -649,9 +650,23 @@ def eval_expr(expr: Expr, batch: Batch, schema: Schema,
         return Column({"year": y, "month": m, "day": day}[expr.part],
                       c.validity)
 
-    if isinstance(expr, (VecLit, VecDistance)):
-        raise NotImplementedError(f"{type(expr).__name__}: "
-                                  f"{_VECTORS_NOT_PORTED}")
+    if isinstance(expr, VecLit):
+        # the query vector goes to the device once per operator (the
+        # fused tier's warm-up makes it before any graph capture)
+        q = _table(tables, expr, dev, lambda: torch.tensor(
+            expr.values, dtype=torch.float32, device=dev))
+        return Column(q.expand(cap, q.shape[0]))
+
+    if isinstance(expr, VecDistance):
+        from cockroach_tpu_torch.ops.vector import (cosine_distance,
+                                                    l2_distance)
+
+        lc = ev(expr.left)
+        rc = ev(expr.right)
+        validity = _combine_validity(lc, rc)
+        fn = l2_distance if expr.metric == "l2" else cosine_distance
+        return Column(fn(lc.values, rc.values), validity)
+
     if isinstance(expr, StrFunc):
         # the row engine's (exec/rowexec.py): the JAX package's message
         raise TypeError(f"cannot evaluate {type(expr).__name__}")

@@ -26,9 +26,9 @@ only ever sees int day comparisons.
 Counterpart of cockroach_tpu/sql/bind.py: `Binder` (date folding,
 literal retyping, the greedy join tree, IN-subqueries as semi/anti
 joins, aggregates, windows, ORDER BY/LIMIT/OFFSET), `plan_sql` and
-`run_sql`. The vector forms (`<->`, `<=>` and the vector top-K of
-`ORDER BY ... LIMIT`) and changefeeds wait for ROADMAP.md queue 1,
-item 8: binding one raises BindError naming it.
+`run_sql`, with the vector forms (`<->` and `<=>` as VecDistance, a
+`'[...]'` literal coerced to a VecLit, and `ORDER BY <distance> LIMIT
+k` as a VectorTopK node) and `bind_changefeed`.
 """
 
 from __future__ import annotations
@@ -43,18 +43,14 @@ from cockroach_tpu_torch.coldata.batch import (
 from cockroach_tpu_torch.ops.agg import AggSpec
 from cockroach_tpu_torch.ops.expr import (
     BinOp, BoolOp, Case, Cast, Cmp, Col, Expr, Extract, InList, IsNull,
-    Like, Lit, Not, ScalarFunc, StrFunc,
+    Like, Lit, Not, ScalarFunc, StrFunc, VecDistance, VecLit,
 )
 from cockroach_tpu_torch.ops.sort import SortKey
 from cockroach_tpu_torch.sql import parser as P
 from cockroach_tpu_torch.sql.plan import (
     Aggregate, Catalog, Distinct, Filter, Join, Limit, OrderBy, Plan,
-    Project, Scan, Window, _plan_columns,
+    Project, Scan, VectorTopK, Window, _plan_columns,
 )
-
-_VECTORS_NOT_PORTED = ("vector search is not ported yet (ROADMAP.md "
-                       "queue 1, item 8)")
-
 
 class BindError(ValueError):
     pass
@@ -275,9 +271,35 @@ class Binder:
 
     def _bind_vec_distance(self, op: str, left: Expr,
                            right: Expr) -> Expr:
-        """`a <-> b` / `a <=> b`: the vector distance (ops/vector.py) is
-        not ported yet."""
-        raise BindError(f"{op}: {_VECTORS_NOT_PORTED}")
+        """`a <-> b` / `a <=> b` -> VecDistance. A string literal operand
+        is coerced to a VecLit via the pgvector `'[1.0,2.0,...]'` text
+        form (how prepared-statement query vectors arrive)."""
+        from cockroach_tpu_torch.ops.vector import parse_vector_literal
+
+        def coerce(e: Expr) -> Expr:
+            if isinstance(e, Lit) and isinstance(e.value, str):
+                try:
+                    return VecLit(parse_vector_literal(e.value))
+                except ValueError as err:
+                    raise BindError(f"bad vector literal: {err}")
+            return e
+
+        left, right = coerce(left), coerce(right)
+        dims = []
+        for e in (left, right):
+            try:
+                t = e.type(self._global)
+            except (KeyError, ValueError):
+                t = None
+            if t is None or t.kind is not Kind.VECTOR:
+                raise BindError(
+                    f"operand of {op!r} must be a VECTOR column or a "
+                    "'[...]' vector literal")
+            dims.append(t.dim)
+        if dims[0] != dims[1]:
+            raise BindError(
+                f"vector dimension mismatch: {dims[0]} vs {dims[1]}")
+        return VecDistance("l2" if op == "<->" else "cos", left, right)
 
     # ----------------------------------------------------- expr binding --
 
@@ -999,8 +1021,11 @@ class Binder:
 
     def _vector_topk(self, plan: Plan,
                      stmt: P.SelectStmt) -> Optional[Plan]:
-        """`ORDER BY emb <-> '[..]' LIMIT k`, the vector top-K: not
-        ported yet. None for every other ORDER BY."""
+        """`ORDER BY emb <-> '[..]' LIMIT k` -> VectorTopK (the vector
+        search node). Fires only for a single ascending distance ORDER BY
+        with a plain LIMIT; the distance need not be in the select list
+        (when it IS selected, the generic OrderBy-on-alias path already
+        handles it and this intercept never sees a Binary)."""
         if (len(stmt.order_by) != 1 or stmt.limit is None or stmt.offset
                 or stmt.distinct):
             return None
@@ -1008,7 +1033,36 @@ class Binder:
         if desc or not (isinstance(ast, P.Binary)
                         and ast.op in ("<->", "<=>")):
             return None
-        raise BindError(f"vector ORDER BY: {_VECTORS_NOT_PORTED}")
+        e, _refs = self._bind_scalar(ast)
+        left, right = e.left, e.right
+        if isinstance(left, VecLit) and isinstance(right, Col):
+            left, right = right, left
+        if not (isinstance(left, Col) and isinstance(right, VecLit)):
+            raise BindError("vector ORDER BY needs a VECTOR column on "
+                            "one side and a literal on the other")
+        out_cols = _plan_columns(plan, self.catalog)
+        # the same distance selected as an item: order by that column
+        # through the generic TopK path (same VecDistance evaluation,
+        # so results are identical to the VectorTopK lowering)
+        for n, ie in getattr(self, "_select_items", []):
+            if repr(ie) == repr(e) and n in out_cols:
+                return Limit(OrderBy(plan, (SortKey(n),)),
+                             stmt.limit, 0)
+        if left.name not in out_cols:
+            raise BindError(
+                f"vector ORDER BY column {left.name!r} is not available "
+                "at the top of the plan (aggregated/projected away)")
+        from cockroach_tpu_torch.util.settings import (
+            Settings, VECTOR_ANN, VECTOR_NPROBE,
+        )
+
+        st = Settings()
+        # ANN only over a bare scan: residual filters/joins/projections
+        # must see exact distances (the index ranks the WHOLE table)
+        ann = bool(st.get(VECTOR_ANN)) and isinstance(plan, Scan)
+        return VectorTopK(plan, left.name, right.values, e.metric,
+                          int(stmt.limit), ann,
+                          int(st.get(VECTOR_NPROBE)))
 
     def _order_name(self, ast: P.Node, out_cols: List[str],
                     stmt: P.SelectStmt) -> str:
@@ -1222,7 +1276,26 @@ def run_sql(sql: str, catalog: Catalog, capacity: int = 1 << 17,
 
 # --------------------------------------------------------- changefeed bind
 
+_CHANGEFEED_OPTIONS = {
+    "resolved",          # emit resolved-timestamp messages
+    "sink",              # 'file:<dir>' or a memory-sink token
+    "max_polls",         # finite feed: stop after N poll cycles
+    "target_wall",       # finite feed: stop once frontier.wall >= this
+    "poll_interval_ms",  # sleep between poll cycles
+    "once",              # single poll then SUCCEEDED
+    "run",               # run inline via adopt_and_run (default for
+                         # finite feeds)
+    "limit",             # EXPERIMENTAL CHANGEFEED: row budget
+}
+
+
 def bind_changefeed(ast, catalog):
-    """CREATE/EXPERIMENTAL CHANGEFEED: changefeeds are not ported yet."""
-    raise BindError("changefeeds are not ported yet (ROADMAP.md queue 1, "
-                    "item 8)")
+    """Resolve CREATE/EXPERIMENTAL CHANGEFEED against the catalog: the
+    target table must exist and every option must be known (the
+    reference rejects unknown changefeed options at plan time too)."""
+    desc = catalog.desc(ast.table)
+    unknown = set(ast.options) - _CHANGEFEED_OPTIONS
+    if unknown:
+        raise BindError(
+            f"unknown changefeed option(s): {', '.join(sorted(unknown))}")
+    return desc, dict(ast.options)

@@ -29,7 +29,7 @@ from cockroach_tpu_torch.sql import parser as P
 from cockroach_tpu_torch.sql.bind import Binder
 from cockroach_tpu_torch.sql.plan import (
     Aggregate, Catalog, Distinct, Filter, IndexScan, Join, Limit, OrderBy,
-    Plan, Project, Scan, Window, _walk_plan, normalize,
+    Plan, Project, Scan, VectorTopK, Window, _walk_plan, normalize,
 )
 
 
@@ -89,6 +89,13 @@ def render_plan(p: Plan, catalog: Catalog) -> List[str]:
         if isinstance(node, Distinct):
             return "distinct" + (f" on ({', '.join(node.keys)})"
                                  if node.keys else "")
+        if isinstance(node, VectorTopK):
+            metric = {"l2": "<->", "cos": "<=>"}.get(node.metric,
+                                                     node.metric)
+            mode = (f"ann nprobe={node.nprobe}" if node.ann
+                    else "exact")
+            return (f"vector top-k [{mode}] {node.column} {metric} "
+                    f"[{len(node.query)}-dim] k={node.k}")
         if isinstance(node, Window):
             fns = ", ".join(f"{s.func}({s.col or ''}) as {s.out}"
                             for s in node.specs)

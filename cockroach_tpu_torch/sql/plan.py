@@ -2,8 +2,10 @@
 
 Counterpart of cockroach_tpu/sql/plan.py, for the plan nodes Scan,
 IndexScan, Filter, Shrink, Project, Join, Aggregate, OrderBy, Limit,
-Distinct, Window and Apply (a correlated or scalar subquery); VectorTopK
-waits for ROADMAP.md queue 1, item 8c. `normalize` runs the JAX
+Distinct, Window, Apply (a correlated or scalar subquery) and
+VectorTopK (ORDER BY <vector distance> LIMIT k: the exact arm lowers to
+a distance projection, a TopKOp with NULLS LAST and a projection that
+drops the distance; the ANN arm to VectorANNOp). `normalize` runs the JAX
 package's passes in its order: decorrelate, push_filters, use_indexes,
 insert_shrinks. `use_indexes` turns a filtered scan whose predicate
 bounds an indexed column with literals into an IndexScan under the
@@ -38,13 +40,15 @@ import numpy as np
 from cockroach_tpu_torch.coldata.batch import INT, Kind, Schema
 from cockroach_tpu_torch.exec.operators import (
     DistinctOp, HashAggOp, JoinOp, LimitOp, MapOp, Operator, OrderedAggOp,
-    ScanOp, ShrinkOp, SortOp, TopKOp, WindowOp,
+    ScanOp, ShrinkOp, SortOp, TopKOp, VectorANNOp, WindowOp,
 )
 from cockroach_tpu_torch.exec.rowexec import (
     EXACT_ARITHMETIC, RowMapOp, has_decimal_division, has_string_compute,
 )
 from cockroach_tpu_torch.ops.agg import AggSpec
-from cockroach_tpu_torch.ops.expr import BoolOp, Cmp, Col, Expr, Lit
+from cockroach_tpu_torch.ops.expr import (
+    BoolOp, Cmp, Col, Expr, Lit, VecDistance, VecLit,
+)
 from cockroach_tpu_torch.ops.sort import SortKey
 from cockroach_tpu_torch.sql.stats import (
     TableStats, conjunct_selectivity, sample_stats,
@@ -352,6 +356,27 @@ class Window(Plan):
 
 
 @dataclass(frozen=True)
+class VectorTopK(Plan):
+    """ORDER BY <vector distance> LIMIT k, the vector-search node.
+    `ann=False` lowers to the distance projection -> TopK composition
+    over existing operators (so the fused tier and the prepared cache
+    apply unchanged); `ann=True` (bare scans only: filtered queries stay
+    exact) lowers to VectorANNOp, a clustered-index probe with the
+    recall/latency `nprobe` dial."""
+
+    input: Plan
+    column: str                 # VECTOR column being ranked
+    query: Tuple[float, ...]    # bind-time constant query vector
+    metric: str                 # "l2" (<->) | "cos" (<=>)
+    k: int
+    ann: bool = False
+    nprobe: int = 4
+
+    def inputs(self):
+        return (self.input,)
+
+
+@dataclass(frozen=True)
 class Apply(Plan):
     """Correlated subquery: for each `input` row, the subquery `sub`
     restricted to the rows whose `correlation` columns match. Never
@@ -418,6 +443,8 @@ def _plan_columns(p: Plan, catalog: Catalog) -> List[str]:
     if isinstance(p, Window):
         return (_plan_columns(p.input, catalog)
                 + [s.out for s in p.specs])
+    if isinstance(p, VectorTopK):
+        return _plan_columns(p.input, catalog)
     if isinstance(p, Apply):
         cols = _plan_columns(p.input, catalog)
         if p.kind == "scalar" and p.scalar is not None:
@@ -483,6 +510,11 @@ def _rebuild(p: Plan, kids) -> Plan:
         # filters never push THROUGH a window (they'd change frames),
         # but pushdown inside its input subtree is preserved
         return Window(kids[0], p.partition_by, p.order_by, p.specs)
+    if isinstance(p, VectorTopK):
+        # filters above a top-K must not sink below it (they would
+        # change WHICH k rows win); inside the subtree is fine
+        return VectorTopK(kids[0], p.column, p.query, p.metric, p.k,
+                          p.ann, p.nprobe)
     if isinstance(p, Apply):
         return Apply(kids[0], kids[1], p.correlation, p.kind, p.scalar)
     raise TypeError(f"unknown plan node {type(p).__name__}")
@@ -590,6 +622,8 @@ def estimate_cardinality(p: Plan, catalog: Catalog) -> float:
         return max(ce / 2.0, 1.0) if p.group_by else 1.0
     if isinstance(p, Limit):
         return float(min(estimate_cardinality(p.input, catalog), p.n))
+    if isinstance(p, VectorTopK):
+        return float(min(estimate_cardinality(p.input, catalog), p.k))
     if isinstance(p, Distinct):
         return max(estimate_cardinality(p.input, catalog) / 2.0, 1.0)
     if p.inputs():
@@ -648,7 +682,7 @@ def _shrink_rec(p: Plan, catalog: Optional[Catalog], under_agg: bool):
         return out, (smalls[0] and p.how in ("inner", "left", "semi",
                                              "anti"))
     if isinstance(p, (Filter, Project, Limit, OrderBy, Distinct,
-                      Aggregate)):
+                      Aggregate, VectorTopK)):
         # row-preserving (or row-reducing) single-child nodes keep their
         # child's smallness
         return out, smalls[0]
@@ -888,6 +922,28 @@ def build(p: Plan, catalog: Catalog, capacity: int = 1 << 17,
         if isinstance(node, Window):
             return WindowOp(rec(node.input), list(node.partition_by),
                             list(node.order_by), list(node.specs))
+        if isinstance(node, VectorTopK):
+            if node.ann and isinstance(node.input, Scan):
+                return VectorANNOp(rec(node.input), node.column,
+                                   node.query, node.metric, node.k,
+                                   node.nprobe)
+            # exact path: distance projection -> sort-and-slice top-K
+            # -> strip the helper column. Composed entirely from MapOp /
+            # TopKOp so the fused tracer and the prepared cache treat a
+            # vector query like any other scan program.
+            child = rec(node.input)
+            cols = _plan_columns(node.input, catalog)
+            dist = VecDistance(node.metric, Col(node.column),
+                               VecLit(node.query))
+            proj = [(n, Col(n)) for n in cols] + [("__vdist", dist)]
+            inner = MapOp(child, [("project", proj)])
+            # NULL embeddings rank LAST (a NULL distance must not beat a
+            # real neighbor), overriding the engine's ASC-nulls-first
+            topk = TopKOp(inner,
+                          [SortKey("__vdist", nulls_first=False)],
+                          node.k)
+            return MapOp(topk, [("project",
+                                 [(n, Col(n)) for n in cols])])
         raise TypeError(f"unknown plan node {type(node).__name__}")
 
     return rec(p)

@@ -24,8 +24,10 @@ the row engine reads once per replay).
 
 Departures: the backend under `auto` is the caller's device, so the JAX
 package's placement cache, `measured_route` and `mark_degraded` are not
-carried (sql/cost.py says why). VectorTopK has no rule yet: it comes
-with ROADMAP.md queue 1, item 8c. An IndexScan lowers to a ScanOp over
+carried (sql/cost.py says why). A VectorTopK's exact arm lowers to
+MapOp and TopKOp, which fuse like any other scan program; its ANN arm
+(VectorANNOp) probes its index outside the fused program, so its tier
+is "streaming". An IndexScan lowers to a ScanOp over
 the index's chunk stream with no cache key: the fused tracer takes it as
 the JAX tracer does (a scan it stacks for the one run, so no capture),
 and an empty index span sends the flow to the streaming operators.
@@ -37,7 +39,7 @@ from dataclasses import dataclass
 from typing import Dict, Optional, Set
 
 from cockroach_tpu_torch.exec.operators import (
-    Operator, ScanOp, flow_backend, walk_operators,
+    Operator, ScanOp, VectorANNOp, flow_backend, walk_operators,
 )
 from cockroach_tpu_torch.exec.rowexec import RowMapOp
 from cockroach_tpu_torch.sql.cost import (
@@ -45,8 +47,8 @@ from cockroach_tpu_torch.sql.cost import (
 )
 from cockroach_tpu_torch.sql.plan import (
     Aggregate, Apply, Catalog, Distinct, Filter, IndexScan, Join, Limit,
-    OrderBy, Plan, Project, Scan, Shrink, Window, _walk_plan, build,
-    estimate_cardinality, normalize,
+    OrderBy, Plan, Project, Scan, Shrink, VectorTopK, Window, _walk_plan,
+    build, estimate_cardinality, normalize,
 )
 
 # plan-node kind -> (display name, exec operator, the device work the
@@ -68,6 +70,8 @@ LOWERING_RULES: Dict[type, tuple] = {
     Limit: ("limit", "LimitOp", "top-K when ordered, slice otherwise"),
     Window: ("window", "WindowOp", "ops/window segmented scans over "
              "the partition sort"),
+    VectorTopK: ("vector top-k", "TopKOp", "ops/vector distances + "
+                 "top-K"),
     Apply: ("apply", "JoinOp", "decorrelated to join+agg before "
             "lowering (plan.decorrelate)"),
 }
@@ -77,7 +81,8 @@ LOWERING_RULES: Dict[type, tuple] = {
 _FAMILY = {
     Scan: "scan", IndexScan: "scan", Join: "join", Apply: "join",
     Aggregate: "agg", Distinct: "agg", OrderBy: "sort", Limit: "sort",
-    Window: "sort", Filter: "fused", Project: "fused", Shrink: "fused",
+    Window: "sort", VectorTopK: "vector", Filter: "fused",
+    Project: "fused", Shrink: "fused",
 }
 
 
@@ -160,6 +165,8 @@ def _node_tier(op: Optional[Operator], backend: str, whole_fused: bool,
     if isinstance(inner, RowMapOp):
         return "host", "row-engine projection (computed strings / " \
                        "exact decimal semantics)"
+    if isinstance(inner, VectorANNOp):
+        return "streaming", "IVF index probe runs as its own dispatch"
     if whole_fused:
         return "fused", "inside the single whole-query device program"
     if op is not None and id(op) in fused_ids:

@@ -65,16 +65,21 @@ Departures from the JAX module:
     fault outlasts the retries; any other error propagates, where the
     JAX catalog falls back on every error.
 
+Materialized views (sql/matview.py; CREATE, DROP, REFRESH and SELECT *
+FROM <view>) keep their group state on the session's device;
+changefeeds (sql/changefeed.py; CREATE CHANGEFEED as a job on the
+catalog's jobs registry, EXPERIMENTAL CHANGEFEED as a "stream" of
+envelope lines) and PAUSE/RESUME/CANCEL JOB are host work, as in the
+JAX session.
+
 Not ported yet (each raises a BindError naming its ROADMAP.md queue 1
 item, or the JAX package's message):
-  - 8b, matviews and changefeeds, with PAUSE/RESUME/CANCEL JOB (SHOW
-    JOBS lists the catalog's jobs registry without their resumers);
   - 8d's `execute_spec` (the serving queue's EXECUTE fast path), and
     with it the registry's `serving-batched` phase;
   - 8e's `route_cancel`: CANCEL QUERY of an id another node owns;
-  - 8c, vector operators (VECTOR columns parse and store);
   - 8d, serving: `serving_image_key`, `resident_serving`, the serving
-    queue's batch specs and `_serving_still_warm`;
+    queue's batch specs and `_serving_still_warm`; the pgwire
+    rendering of EXPERIMENTAL CHANGEFEED's stream;
   - 8e, the plan vault (`_invalidate_vault`) and the pre-warm job.
 """
 
@@ -459,7 +464,9 @@ class SessionCatalog(Catalog):
         def chunks():
             # the resident tier first, under storage/mvcc.py's fallback
             # rule; the host walk is the backstop
-            image = store.resident_columns(tid, n_fields, store.clock.now())
+            # the clock is read only when the resident tier serves (the
+            # host walk reads it below), as the JAX catalog reads it
+            image = store.resident_columns(tid, n_fields, store.clock.now)
             if image is not None:
                 pks, vals = image
                 for off in range(0, int(pks.shape[0]), capacity):
@@ -663,13 +670,6 @@ class _Prepared:
         self.capacity = capacity
 
 
-# statements whose module is not ported yet -> the ROADMAP.md queue 1
-# item that brings it
-_LATER = {
-    P.CreateChangefeed: "8b", P.StreamChangefeed: "8b",
-    P.CreateMatView: "8b", P.DropMatView: "8b", P.RefreshMatView: "8b",
-    P.JobControl: "8b",
-}
 # statements that change plans wholesale (the version check cannot see
 # them): each clears the prepared cache
 _PLAN_CHANGING = (P.CreateTable, P.DropTable, P.CreateIndex, P.AlterTable,
@@ -1021,6 +1021,10 @@ class Session:
         if self._txn is not None and isinstance(ast, _DDL):
             raise BindError("DDL inside a transaction is not supported "
                             "(descriptors are not transactional yet)")
+        if isinstance(ast, P.SelectStmt) and len(ast.tables) == 1 \
+                and isinstance(self.catalog, SessionCatalog) \
+                and self._matviews().get(ast.tables[0].name) is not None:
+            return self._select_matview(ast)
         if isinstance(ast, (P.SelectStmt, P.ExplainStmt)):
             return self._select(sql, ast)
         if isinstance(ast, P.TxnControl):
@@ -1051,10 +1055,6 @@ class Session:
                 raise SQLError("42704",
                                f"unknown query id {ast.query_id}")
             return "ok", "CANCEL QUERY", None
-        if type(ast) in _LATER:
-            raise BindError(
-                f"{type(ast).__name__} is not ported yet (ROADMAP.md "
-                f"queue 1, item {_LATER[type(ast)]})")
         if not isinstance(self.catalog, SessionCatalog):
             raise BindError("this catalog is read-only (DDL/DML need a "
                             "storage-backed session)")
@@ -1075,6 +1075,18 @@ class Session:
             return self._update(ast)
         if isinstance(ast, P.Delete):
             return self._delete(ast)
+        if isinstance(ast, P.CreateChangefeed):
+            return self._create_changefeed(ast)
+        if isinstance(ast, P.StreamChangefeed):
+            return self._stream_changefeed(ast)
+        if isinstance(ast, P.CreateMatView):
+            return self._create_matview(ast)
+        if isinstance(ast, P.DropMatView):
+            return self._drop_matview(ast)
+        if isinstance(ast, P.RefreshMatView):
+            return self._refresh_matview(ast)
+        if isinstance(ast, P.JobControl):
+            return self._job_control(ast)
         raise BindError(f"unsupported statement {type(ast).__name__}")
 
     def _select(self, sql: str, ast):
@@ -1183,20 +1195,127 @@ class Session:
                    for c in cols}
         return "rows", payload, None
 
+    # --------------------------------------- changefeeds / matviews / jobs
+
+    def _matviews(self):
+        """The catalog-attached MatViewManager (made on first use; the
+        definitions load from the 0xFFC0 system keyspace once per
+        catalog). Its group states live on the device of the session
+        that made it."""
+        from cockroach_tpu_torch.sql.matview import MatViewManager
+
+        cat = self.catalog
+        mgr = getattr(cat, "_matview_mgr", None)
+        if mgr is None:
+            mgr = MatViewManager(cat, device=self.device)
+            cat._matview_mgr = mgr
+        return mgr
+
     def _jobs_registry(self):
         """The catalog-attached jobs Registry that SHOW JOBS and
         crdb_internal.jobs list (job records are durable in the store,
         so it lists the CREATE INDEX and ALTER TABLE backfills every
-        session ran). The changefeed resumer the JAX session registers
-        on it is item 8b."""
+        session ran), with the changefeed resumer registered: shared
+        across sessions, so CANCEL JOB fences feeds any session
+        started."""
         from cockroach_tpu_torch.server.jobs import Registry
+        from cockroach_tpu_torch.sql import changefeed as _cf
 
         cat: SessionCatalog = self.catalog
         reg = getattr(cat, "_jobs_registry", None)
         if reg is None:
             reg = Registry(cat.store)
+            _cf.register(reg, cat)
             cat._jobs_registry = reg
         return reg
+
+    def _create_changefeed(self, ast: P.CreateChangefeed):
+        from cockroach_tpu_torch.server.jobs import States
+        from cockroach_tpu_torch.sql.bind import bind_changefeed
+
+        cat: SessionCatalog = self.catalog
+        desc, options = bind_changefeed(ast, cat)
+        payload: dict = {"table": desc.name,
+                         "options": {"resolved":
+                                     bool(options.pop("resolved", False))}}
+        sink_opt = options.pop("sink", None)
+        if sink_opt:
+            s = str(sink_opt)
+            payload["sink"] = ({"kind": "file", "path": s[5:]}
+                               if s.startswith("file:")
+                               else {"kind": "memory", "token": s})
+        if "target_wall" in options:
+            payload["target"] = [int(options.pop("target_wall")), 0]
+        for k in ("max_polls", "poll_interval_ms", "once"):
+            if k in options:
+                payload[k] = options.pop(k)
+        finite = any(k in payload for k in ("target", "max_polls",
+                                            "once"))
+        run_opt = options.pop("run", None)
+        if run_opt is not None and bool(run_opt) and not finite:
+            # adopt_and_run would never return: a continuous feed has
+            # no stop condition, so inline execution hangs the session
+            raise BindError(
+                "WITH run needs a stop condition (once / max_polls / "
+                "target_wall); run continuous feeds on a background "
+                "adopter and stop them with CANCEL JOB")
+        run_inline = finite if run_opt is None else bool(run_opt)
+        reg = self._jobs_registry()
+        job_id = reg.create("changefeed", payload)
+        if run_inline:
+            reg.adopt_and_run()
+            rec = reg.get(job_id)
+            if rec.state == States.FAILED:
+                raise SQLError("XX000", f"changefeed failed: {rec.error}")
+        return "rows", {"job_id": np.asarray([job_id], np.int64)}, None
+
+    def _stream_changefeed(self, ast: P.StreamChangefeed):
+        """EXPERIMENTAL CHANGEFEED FOR t: the "stream" result kind, a
+        generator of envelope lines (sql/changefeed.py stream_rows)."""
+        from cockroach_tpu_torch.sql import changefeed as _cf
+        from cockroach_tpu_torch.sql.bind import bind_changefeed
+
+        cat: SessionCatalog = self.catalog
+        desc, options = bind_changefeed(ast, cat)
+        return "stream", _cf.stream_rows(cat, desc, options), None
+
+    def _create_matview(self, ast: P.CreateMatView):
+        self._matviews().create(ast.name, ast.sql, ast.if_not_exists)
+        return "ok", "CREATE MATERIALIZED VIEW", None
+
+    def _drop_matview(self, ast: P.DropMatView):
+        self._matviews().drop(ast.name, ast.if_exists)
+        return "ok", "DROP MATERIALIZED VIEW", None
+
+    def _refresh_matview(self, ast: P.RefreshMatView):
+        mv = self._matviews().get(ast.name)
+        if mv is None:
+            raise BindError(f"no materialized view {ast.name!r}")
+        mv.refresh()
+        return "ok", "REFRESH MATERIALIZED VIEW", None
+
+    def _select_matview(self, ast: P.SelectStmt):
+        """SELECT * FROM <view>: serve from the device-resident group
+        state (refreshed to now), rows sorted by group key."""
+        if (len(ast.items) != 1
+                or not isinstance(ast.items[0][0], P.ColRef)
+                or ast.items[0][0].name != "*"
+                or ast.where is not None or ast.group_by
+                or ast.order_by or ast.limit is not None):
+            raise BindError("materialized views support only "
+                            "SELECT * FROM <view> reads")
+        payload, schema = self._matviews().read(ast.tables[0].name)
+        return "rows", payload, schema
+
+    def _job_control(self, ast: P.JobControl):
+        reg = self._jobs_registry()
+        if ast.op == "cancel":
+            reg.cancel(ast.job_id)
+        elif ast.op == "pause":
+            reg.pause(ast.job_id)
+        else:
+            reg.resume(ast.job_id)
+        return "ok", f"{ast.op.upper()} JOB", None
 
     def _get_var(self, name: str):
         key = self._VARS[name]

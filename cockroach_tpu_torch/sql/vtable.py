@@ -32,8 +32,8 @@ Departures, each waiting for its ROADMAP.md queue 1 item:
   - `ranges` returns no rows, as the JAX provider does with no cluster
     (the kv cluster is not ported);
   - `serving_batches` raises a BindError naming 8d (the serving queue);
-  - `jobs` lists the catalog's jobs registry; the matviews' rows come
-    with 8b.
+  - `jobs` lists the catalog's jobs registry, then one row for each
+    materialized view (kind "matview:<name>", its folds and re-scans).
 A virtual table's `scan_cache_key` is None, so its scan is never
 resident, never cached and never prepared: on CUDA the fused program
 over it runs eagerly, with no graph capture (exec/fused.py).
@@ -117,7 +117,10 @@ def _rows_statement_statistics(base=None) -> List[dict]:
 def _rows_jobs(base=None) -> List[dict]:
     reg = getattr(base, "_jobs_registry", None) if base is not None \
         else None
+    mgr = getattr(base, "_matview_mgr", None) if base is not None \
+        else None
     rows: List[dict] = []
+    now_wall = None
     if reg is not None:
         now_wall = reg.store.clock.now().wall
         for j in reg.list_jobs():
@@ -139,6 +142,27 @@ def _rows_jobs(base=None) -> List[dict]:
                                  if frontier else None),
                 "folds": None,
                 "rescans": None,
+            })
+    if mgr is not None:
+        # matviews are standing jobs over the changefeed source; their
+        # fold/re-scan counters surface as job rows so lag and refresh
+        # behavior are queryable in-band, not just process gauges
+        if now_wall is None:
+            store = getattr(base, "store", None)
+            now_wall = (store.clock.now().wall
+                        if store is not None else 0)
+        for name, rep in sorted(mgr.report().items()):
+            frontier = rep.get("frontier") or [0, 0]
+            rows.append({
+                "job_id": 0,
+                "node_id": local_node_id(),
+                "kind": "matview:" + name,
+                "state": "running",
+                "progress": 0.0,
+                "error": "",
+                "frontier_lag": float(max(0, now_wall - frontier[0])),
+                "folds": int(rep.get("folds", 0)),
+                "rescans": int(rep.get("rescans", 0)),
             })
     return rows
 

@@ -31,6 +31,7 @@ command corpus in tests/testdata/mvcc/.
 from __future__ import annotations
 
 import struct
+import threading
 from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
@@ -68,6 +69,22 @@ class MVCCStore:
         self.clock = clock or HLC()
         # the resident tier's device (None: CUDA, resolved on attach)
         self.device = device
+        # held by a write from taking its timestamp until its versions
+        # are in the engine (`write_window`)
+        self._write_mu = threading.RLock()
+
+    def write_window(self):
+        """The lock a write holds from taking its timestamp until its
+        versions are in the engine: `put`, `delete`, `ingest_table` and
+        kv/txn.py's commit, which writes every version of a transaction
+        at one timestamp. A reader that takes the clock under it (the
+        changefeed's and a materialized view's horizon) knows that every
+        version at or below its reading is already in the engine and
+        that every later write takes a larger timestamp. The JAX store
+        has no such lock, so a poll that runs while a transaction applies
+        its versions can close its window over versions not yet written
+        and never see them; the port departs from it here."""
+        return self._write_mu
 
     # -- scan-image cache seam --------------------------------------------
 
@@ -108,8 +125,10 @@ class MVCCStore:
 
     def put(self, table_id: int, pk: int, fields: Sequence[int],
             ts: Optional[Timestamp] = None) -> Timestamp:
-        ts = ts or self.clock.now()
-        self.engine.put(encode_key(table_id, pk), ts, encode_row(fields))
+        with self._write_mu:
+            ts = ts or self.clock.now()
+            self.engine.put(encode_key(table_id, pk), ts,
+                            encode_row(fields))
         from cockroach_tpu_torch.storage import resident as _resident
 
         _resident.on_put(self, table_id, pk, ts, fields)
@@ -118,8 +137,9 @@ class MVCCStore:
 
     def delete(self, table_id: int, pk: int,
                ts: Optional[Timestamp] = None) -> Timestamp:
-        ts = ts or self.clock.now()
-        self.engine.delete(encode_key(table_id, pk), ts)
+        with self._write_mu:
+            ts = ts or self.clock.now()
+            self.engine.delete(encode_key(table_id, pk), ts)
         from cockroach_tpu_torch.storage import resident as _resident
 
         _resident.on_delete(self, table_id, pk, ts)
@@ -164,10 +184,11 @@ class MVCCStore:
         sorted engine run — the AddSSTable ingest path
         (batcheval/cmd_add_sstable.go), used by workload loads and
         RESTORE. ~100x faster than per-row put()."""
-        ts = ts or self.clock.now()
         pks = np.asarray(pks, dtype=np.int64)
         col_list = list(cols.values())
-        self.engine.ingest(table_id, pks, col_list, ts)
+        with self._write_mu:
+            ts = ts or self.clock.now()
+            self.engine.ingest(table_id, pks, col_list, ts)
         from cockroach_tpu_torch.storage import resident as _resident
 
         _resident.on_ingest(self, table_id, pks, col_list, ts)
@@ -217,7 +238,7 @@ class MVCCStore:
                 return
             start = res.resume_key
 
-    def resident_columns(self, table_id: int, ncols: int, ts: Timestamp,
+    def resident_columns(self, table_id: int, ncols: int, ts,
                          start_pk: int = 0, end_pk: Optional[int] = None):
         """The resident tier's (pks, vals (ncols, k)) on the host for the
         rows visible at `ts` in [start_pk, end_pk), materialized whole
@@ -227,7 +248,10 @@ class MVCCStore:
         detaches), or failed with an error util/retry.py does not call
         TERMINAL (device memory, a transient fault past the retries); a
         TERMINAL error propagates. scan_chunks' tier and sql/session.py
-        SessionCatalog's."""
+        SessionCatalog's. `ts` may be a callable (a clock's `now`): it is
+        then read once per attempt and only when the resident tier
+        serves, so a host-walk read takes the same clock readings as the
+        JAX catalog's."""
         from cockroach_tpu_torch.exec import stats
         from cockroach_tpu_torch.storage import resident as _resident
         from cockroach_tpu_torch.util import retry
@@ -240,7 +264,8 @@ class MVCCStore:
 
         def materialize():
             maybe_fail("scan.resident")
-            return rt.scan_columns(ts, start_pk, end_pk)
+            return rt.scan_columns(ts() if callable(ts) else ts, start_pk,
+                                   end_pk)
 
         try:
             with _tracing.child_span("scan.resident", table=table_id), \

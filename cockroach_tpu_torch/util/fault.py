@@ -7,10 +7,12 @@ the scan's transfer and stack (exec/operators.py), the resident tier
 (storage/mvcc.py), the fused program's compile and run (exec/fused.py:
 before the capture or the replay, never inside a CUDA graph capture),
 the scan-image cache's insert (exec/scan_cache.py, swallowed as a
-miss), the spill blocks' write and read (exec/spill.py) and ALTER
-TABLE's backfill (sql/session.py). The JAX points of modules the port
-does not have yet (dist.a2a, dtxn.before_resolve, changefeed.emit,
-view.fold) wait for their ROADMAP.md queue 1 items. The jobs registry's
+miss), the spill blocks' write and read (exec/spill.py), ALTER
+TABLE's backfill (sql/session.py), a changefeed's envelope emission
+(sql/changefeed.py) and a materialized view's delta fold
+(sql/matview.py). The JAX points of modules the port does not have yet
+(dist.a2a, dtxn.before_resolve) wait for their ROADMAP.md queue 1
+items. The jobs registry's
 checkpoint passes the crash point `jobs.checkpoint` (server/jobs.py, in
 DURABLE_POINTS). The durable-write seams the port's engines pass
 through (wal.append, wal.sync, engine.flush) are the JAX package's.
@@ -71,6 +73,8 @@ KNOWN_POINTS = (
     "spill.block_read",   # spilled-block replay (BlockSource.batches)
     "cache.insert",       # scan-image cache insert (ScanImageCache.put)
     "alter.backfill_chunk",  # ALTER TABLE's column backfill (sql/session.py)
+    "changefeed.emit",    # per-envelope sink emission (sql/changefeed.py)
+    "view.fold",          # incremental matview delta fold (sql/matview.py)
 )
 
 # Durable-write seams the crash shim wraps (crash_point()/DurableFile

@@ -137,3 +137,18 @@ SCAN_IMAGE_CACHE_BUDGET = Settings.register(
     "device memory budget for the cross-query scan-image cache "
     "(LRU-evicted)",
 )
+# Vector search (sql/plan.py VectorTopK): the ANN arm trades recall for
+# latency; exact is the default because it is loss-free. nprobe is the
+# recall dial (recall@10 >= 0.9 at the default on clustered data; raise
+# it for adversarial distributions).
+VECTOR_ANN = Settings.register(
+    "sql.vector.ann_topk",
+    False,
+    "use the clustered-ANN index for ORDER BY <vector distance> LIMIT k "
+    "over bare scans (filtered queries always take the exact path)",
+)
+VECTOR_NPROBE = Settings.register(
+    "sql.vector.nprobe",
+    4,
+    "clusters probed per ANN vector search (recall/latency dial)",
+)

@@ -27,8 +27,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # clock, fault injection, the engines, the store, the resident tier
 # and its visibility pass, YCSB), and the lifecycle seams (metrics,
 # logging, tracing, cancellation, admission, the query registry,
-# insights, the crdb_internal tables, the statement bundle): imported
-# by name, so a module
+# insights, the crdb_internal tables, the statement bundle), and
+# streaming (rangefeeds, changefeeds, the view fold, materialized views)
+# and vector search (the searchers, the vector bench): imported by name,
+# so a module
 # that goes missing fails here rather than being skipped by the package
 # walk
 SLICE_MODULES = ["ops.hash", "ops.prefix", "ops.search", "ops.rowmat",
@@ -48,7 +50,9 @@ SLICE_MODULES = ["ops.hash", "ops.prefix", "ops.search", "ops.rowmat",
                  "server.jobs", "coldata.carry", "util.metric",
                  "util.log", "util.tracing", "util.cancel",
                  "util.admission", "server.registry", "sql.insights",
-                 "sql.vtable", "server.debugzip"]
+                 "sql.vtable", "server.debugzip", "kv.rangefeed",
+                 "sql.changefeed", "ops.view_fold", "sql.matview",
+                 "ops.vector", "workload.vectorbench"]
 
 
 def test_port_imports_no_jax_pyarrow_or_jax_package():

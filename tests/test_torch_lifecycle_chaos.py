@@ -247,7 +247,7 @@ def test_known_points_are_wired():
     text = "\n".join(src)
     wired = set(re.findall(r'maybe_fail\("([a-z_.]+)"\)', text))
     assert set(KNOWN_POINTS) == wired
-    assert len(KNOWN_POINTS) == 9
+    assert len(KNOWN_POINTS) == 11
 
 
 @pytest.mark.cuda

@@ -448,8 +448,7 @@ def test_maybe_fail_after_and_probability():
 
     assert fault.KNOWN_POINTS == tuple(
         p for p in JAX_POINTS if p not in (
-            "dist.a2a", "dtxn.before_resolve", "changefeed.emit",
-            "view.fold"))
+            "dist.a2a", "dtxn.before_resolve"))
 
 
 def test_durable_file_torn_append(tmp_path):
