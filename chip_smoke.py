@@ -290,17 +290,43 @@ Phases, each printed on lines of its own:
      then with sql.vector.ann_topk on (nprobe VEC_NPROBE) cold (an index
      build) and warm (the cached index), and after an INSERT of
      VEC_INSERT rows (one index append, no build); every answer equal to
-     the searchers' (ids up to float64 ties).
-Then the whole run's seconds (`[16]`), one JSON line per query (Q1 and
+     the searchers' (ids up to float64 ties);
+ 16. serving and the wire (sql/pgwire.py, sql/serving.py and the
+     batched runners of exec/fused.py, workload/servebench.py): (a) a
+     PgServer over phase 11's TPC-H catalog, the ten SQL texts over the
+     simple protocol (Q1 also over Parse/Bind/Execute), each text's rows
+     equal to a direct Session's (held to phase 9's rows and Q1's
+     oracle) as the wire renders them; the cold, warm median and the
+     wire's own cost over Session.execute; a warm Q1 over the wire is one
+     replay with one sync and K1 once in a traced replay; (d) a
+     CancelRequest against the window over all of lineitem (57014) and
+     a drain with one straggler (57014, a new statement 57P01, new
+     connections refused); (b) YCSB-E over the wire: usertable
+     (SERVE_RECORDS records, SERVE_FIELDS int fields from --seed, the
+     resident tier on) and a pk-less TPC-H-style li, SERVE_CLIENTS
+     clients x SERVE_OPS ops (70% range scans, half simple and half
+     Parse/Bind/Execute of one template, 10% aggregates, 10% top-K, 10%
+     GROUP BY over li) with serving off, then on, then SERVE_INSERT_OPS
+     beside workload E's inserts on another connection; every answer
+     equal to numpy, no serving fallback, the scan class's runner kept
+     (a stable serving_image_key) and its image refreshed, the inserted
+     rows read back; (e) CAPTURE_STATEMENTS statements that each capture
+     a graph, on a connection of their own while the serving-on clients
+     run; (f) EXPERIMENTAL CHANGEFEED over the wire equal to a
+     memory-sink feed; (c) VEC_SERVE_CLIENTS x VEC_SERVE_OPS exact vector
+     top-K binds over phase 15's docs table, each equal to the per-query
+     searcher's.
+Then the whole run's seconds (`[17]`), one JSON line per query (Q1 and
 phases 6 to 9), phase 10's JSON line, one `sql_<name>` JSON line per
-phase 11 record, the JSON lines of phases 12 to 15, the
+phase 11 record, the JSON lines of phases 12 to 16, the
 JSON line of
 kernels (dense_sums' launches in the Q1 run, by path: Q1, Q12, Q4 and
 Q5, in the traced fused replays of Q1, Q4, Q5 and Q12, in the traced SQL
 replays of Q1 and Q12, with every trace's reading, in the MVCC runs of
 phase 12, in the session's traced Q1 replays of phase 13, before and
-after the committed write, and in phase 14's traced session replays,
-`q1_traced_session`; its
+after the committed write, in phase 14's traced session replays,
+`q1_traced_session`, and over the wire in phase 16, `q1_wire` and
+`q1_wire_traced`; its
 times at Q1's, Q4's and Q5's shapes and at the fused queries' shapes),
 the card line and, last, the result line.
 
@@ -316,7 +342,8 @@ traced replays go to DIR/<query>_fused_*, or without --profile to
 build/phase9_traces/; phase 11's to DIR/sql_* or build/phase11_traces/;
 phase 12's to DIR/q1_mvcc_fused_* or build/phase12_traces/; phase 13's
 to DIR/q1_session* or build/phase13_traces/; phase 14's to
-DIR/q1_trace_* or build/phase14_traces/.
+DIR/q1_trace_* or build/phase14_traces/; phase 16's to
+build/phase16_traces/.
 """
 
 import argparse
@@ -2502,26 +2529,30 @@ def runtime_calls(trace_path: str, needle: str) -> int:
                and needle in e.get("name", ""))
 
 
-def traced_replay_reading(torch, session, text: str, stem: str) -> dict:
-    """One traced warm execute of `text`: the dense_sums kernels and all
-    device kernels the trace recorded, the graph launches on its host
-    side and the runner's mode. A trace whose host side records the graph
-    launch of a replay but whose device side holds no record at all is
-    the profiler's loss, not the replay's (a graph launch runs every node
-    of the graph): it is taken again, up to TRACE_ATTEMPTS times, and the
-    reading says so. Any other reading stands as it is."""
+def traced_replay_reading(torch, session, text: str, stem: str,
+                          run=None, mode_of=None) -> dict:
+    """One traced warm execute of `text` (`session.execute`, or `run`):
+    the dense_sums kernels and all device kernels the trace recorded, the
+    graph launches on its host side and the runner's mode (`mode_of()`,
+    else the session's prepared runner's). A trace whose host side
+    records the graph launch of a replay but whose device side holds no
+    record at all is the profiler's loss, not the replay's (a graph
+    launch runs every node of the graph): it is taken again, up to
+    TRACE_ATTEMPTS times, and the reading says so. Any other reading
+    stands as it is."""
     attempts = 0
     while True:
         attempts += 1
-        trace_query(torch, session.execute, text, stem)
+        trace_query(torch, run or session.execute, text, stem)
         trace = stem + "_trace.json"
         reading = {
             "dense_sums": kernel_events(trace, DS_KERNEL),
             "device_kernels": kernel_events(trace, ""),
             "device_records": device_busy_ms(trace)[1],
             "graph_launches": runtime_calls(trace, "GraphLaunch"),
-            "mode": session._prepared[text].op._fused_runner.last.get(
-                "mode"),
+            "mode": (mode_of() if mode_of is not None else
+                     session._prepared[text].op._fused_runner.last.get(
+                         "mode")),
             "attempts": attempts, "retaken": attempts > 1}
         lost = (reading["device_records"] == 0
                 and reading["graph_launches"] >= 1
@@ -5135,9 +5166,15 @@ def run_phase15(torch, gen, dev, seed):
           f"batched equal per-query bit for bit", flush=True)
     part_done("d")
 
-    # ---- (e) the same vectors through SQL
+    # ---- (e) the same vectors through SQL, each on the per-statement
+    # path (VectorTopK's graph): the serving queue, which would take the
+    # exact warm executes, is phase 16's
+    from cockroach_tpu_torch.sql.serving import SERVING_ENABLED
+
     settings = Settings()
-    prev = (settings.get(VECTOR_ANN), settings.get(VECTOR_NPROBE))
+    prev = (settings.get(VECTOR_ANN), settings.get(VECTOR_NPROBE),
+            settings.get(SERVING_ENABLED))
+    settings.set(SERVING_ENABLED, False)
     store = MVCCStore(engine=NativeEngine(), clock=HLC(), device=dev)
     cat = SessionCatalog(store)
     groups = np.arange(VEC_N, dtype=np.int64) % 3
@@ -5218,6 +5255,7 @@ def run_phase15(torch, gen, dev, seed):
     finally:
         settings.set(VECTOR_ANN, prev[0])
         settings.set(VECTOR_NPROBE, prev[1])
+        settings.set(SERVING_ENABLED, prev[2])
     rec["vector_sql"] = sql_rec
     print(f"  (e) docs ({VEC_N} rows, vector({VEC_D})) through SQL: exact "
           f"cold {sql_rec['exact_cold']['s'] * 1e3:.1f} ms, warm "
@@ -5237,6 +5275,785 @@ def run_phase15(torch, gen, dev, seed):
     print(f"  phase 15: {rec['seconds']:.1f} s, by part "
           f"{ {k: round(v, 1) for k, v in part_s.items()} }", flush=True)
     return rec
+
+
+# ----------------------------------------------------------- phase 16
+
+WIRE_WARM_RUNS = 5        # (a) warm executes of each text over the wire
+SERVE_RECORDS = 1_000_000  # (b) usertable: YCSB-E at 1,000,000 records
+SERVE_FIELDS = 10
+SERVE_CLIENTS = 16        # the JAX bench's BENCH_SERVING_THREADS default
+SERVE_OPS = 200           # ops per client in each of the off and on runs
+SERVE_INSERT_OPS = 50     # ops per client in the run beside the inserts
+SERVE_CAPACITY = 1 << 17
+SERVE_SCAN_POOL = 16      # (lo, len) pairs the range scans draw from
+SERVE_AGG_POOL = 4
+SERVE_TOPK_POOL = 4
+SERVE_GROUP_POOL = 3
+SERVE_LI_ROWS = 100_000   # the pk-less TPC-H-style table
+INSERT_BASE = 1_000_000   # workload E's inserts land past every read
+CAPTURE_STATEMENTS = 5    # (e)
+VEC_SERVE_CLIENTS = 16    # (c)
+VEC_SERVE_OPS = 50
+VEC_SERVE_K = 10
+CF_WIRE_ROWS = 1000       # (f)
+CANCEL_AFTER_S = 0.1      # (d) the CancelRequest's delay after the query
+WIRE_RUN_EVENT = "fused.replay"  # (a) a warm run's event ("fused.exec" eager)
+DRAIN_GRACE_S = 0.1       # (d) drain's grace for the straggler
+USER_COLS = ("pk",) + tuple(f"f{i}" for i in range(SERVE_FIELDS))
+
+
+def wire_rows(payload, schema) -> list:
+    """A session result as the text rows pgwire sends (cli.py
+    decode_column over each column, as sql/pgwire.py _render)."""
+    from cockroach_tpu_torch.cli import decode_column
+
+    names = [n for n in payload if not n.endswith("__valid")]
+    cols = []
+    for n in names:
+        ty = d = None
+        if schema is not None:
+            try:
+                ty = schema.field(n).type
+                d = schema.dictionary(n)
+            except KeyError:
+                pass
+        cols.append(decode_column(payload[n], payload.get(n + "__valid"),
+                                  ty, d))
+    return [tuple(r) for r in zip(*cols)] if cols else []
+
+
+def wire_session(srv, client):
+    """The server-side Session of a WireClient's connection (its cancel
+    key names it)."""
+    with srv._mu:
+        return srv._cancel_keys[tuple(client.key)].session
+
+
+def wire_run(torch, client, sql: str, extended=None):
+    """One statement over the wire, counted as session_run counts: (rows,
+    sqlstate, seconds, synchronizing calls, every stage's event count,
+    kernel launches). The counters are process-wide, so the server's
+    connection thread is counted."""
+    import warnings
+
+    from cockroach_tpu_torch.exec import stats
+    from cockroach_tpu_torch.ops import cuda_kernels as ck
+
+    for k in ck.KERNELS:
+        k.launches = 0
+    col = stats.enable()
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                t0 = time.perf_counter()
+                rows, code = (client.query(sql) if extended is None
+                              else client.query_extended(*extended))
+                dt = time.perf_counter() - t0
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+    finally:
+        stats.disable()
+    # the calls themselves (the mode's first use also warns that it is a
+    # prototype)
+    syncs = sum("called a synchronizing" in str(w.message) for w in caught)
+    events = {n: st.events for n, st in col.stages.items()}
+    launches = {k.source.stem: k.launches for k in ck.KERNELS}
+    return rows, code, dt, syncs, events, launches
+
+
+def serve_tables(store, cat, rng):
+    """(b)'s tables, written the way session_load writes TPC-H: usertable
+    (pk 0..SERVE_RECORDS-1, SERVE_FIELDS int fields from `rng`) and the
+    pk-less li (qty, price, disc, rflag, shipdate; SERVE_LI_ROWS rows),
+    every column NOT NULL. -> ({column: values} of each, load seconds)."""
+    from cockroach_tpu_torch.sql.session import TableDescriptor
+
+    t0 = time.perf_counter()
+    user = {"pk": np.arange(SERVE_RECORDS, dtype=np.int64)}
+    for i in range(SERVE_FIELDS):
+        user[f"f{i}"] = rng.integers(0, 1 << 31, SERVE_RECORDS,
+                                     dtype=np.int64)
+    n = SERVE_LI_ROWS
+    li = {"qty": rng.integers(1, 51, n), "price": rng.integers(100, 1000, n),
+          "disc": rng.integers(0, 11, n), "rflag": rng.integers(0, 3, n),
+          "shipdate": rng.integers(0, 365, n)}
+    li = {k: np.asarray(v, np.int64) for k, v in li.items()}
+    for name, cols, pk in (("usertable", user, "pk"), ("li", li, None)):
+        names = [c for c in cols if c != pk]
+        slots = {c: cols[c] for c in names}
+        slots["__nulls"] = np.zeros(len(cols[names[0]]), np.int64)
+        rows = len(slots["__nulls"])
+        pks = cols[pk] if pk else np.arange(1, rows + 1, dtype=np.int64)
+        tid = cat._next_id()
+        store.ingest_table(tid, pks, slots)
+        columns = ([(pk, "int")] if pk else []) + [(c, "int") for c in names]
+        cat.save(TableDescriptor(
+            tid, name, columns, pk, next_rowid=1 if pk else rows + 1,
+            row_count=rows, notnull=[c for c, _ in columns]))
+    return user, li, time.perf_counter() - t0
+
+
+def serve_pools(rng, user, li):
+    """The read pools of (b), each entry (class, sql, template-or-None,
+    params, expected text rows from numpy over the generated arrays):
+    range scans over (lo, len) pairs (scrambled zipfian 0.99 starts, len
+    uniform in [1, 100], every range below INSERT_BASE), aggregates and
+    top-K over such ranges, and GROUP BYs over li."""
+    from cockroach_tpu_torch.cli import decode_column
+    from cockroach_tpu_torch.coldata.batch import FLOAT
+    from cockroach_tpu_torch.workload import ycsb
+
+    span = SERVE_RECORDS - ycsb.MAX_SCAN_LEN
+    n_pairs = SERVE_SCAN_POOL + SERVE_AGG_POOL + SERVE_TOPK_POOL
+    starts = ycsb.fnv_scramble(ycsb.Zipf(span, rng=rng).draw(n_pairs), span)
+    lens = rng.integers(1, ycsb.MAX_SCAN_LEN + 1, n_pairs)
+    cols = ", ".join(USER_COLS)
+    tmpl = (f"select {cols} from usertable where pk >= $1 and pk < $2 "
+            f"order by pk")
+    pools = {"scan": [], "agg": [], "topk": [], "group": []}
+    for i in range(n_pairs):
+        lo, hi = int(starts[i]), int(starts[i] + lens[i])
+        sel = slice(lo, hi)
+        if i < SERVE_SCAN_POOL:
+            sql = tmpl.replace("$1", str(lo), 1).replace("$2", str(hi), 1)
+            want = [tuple(str(int(user[c][r])) for c in USER_COLS)
+                    for r in range(lo, hi)]
+            pools["scan"].append((sql, (tmpl, (str(lo), str(hi))), want))
+        elif i < SERVE_SCAN_POOL + SERVE_AGG_POOL:
+            sql = ("select count(*) as c, sum(f1) as s, min(f2) as mn, "
+                   "max(f3) as mx, avg(f4) as a from usertable where pk "
+                   f">= {lo} and pk < {hi}")
+            f4 = user["f4"][sel]
+            avg = np.asarray([np.float32(int(f4.sum()))
+                              / np.float32(max(len(f4), 1))], np.float32)
+            want = [(str(hi - lo), str(int(user["f1"][sel].sum())),
+                     str(int(user["f2"][sel].min())),
+                     str(int(user["f3"][sel].max())),
+                     decode_column(avg, np.ones(1, bool), FLOAT, None)[0])]
+            pools["agg"].append((sql, None, want))
+        else:
+            j = i - SERVE_SCAN_POOL - SERVE_AGG_POOL
+            k, desc = 5 + (j * 3) % 9, bool(j % 2)
+            sql = (f"select pk, f1 from usertable where pk >= {lo} and pk "
+                   f"< {hi} order by f1{' desc' if desc else ''} limit {k}")
+            pks = user["pk"][sel]
+            f1 = user["f1"][sel]
+            order = np.lexsort((pks, -f1 if desc else f1))[:k]
+            want = [(str(int(pks[o])), str(int(f1[o]))) for o in order]
+            pools["topk"].append((sql, None, want))
+    for d in range(SERVE_GROUP_POOL):
+        cut = 90 + 120 * d
+        sql = ("select rflag, count(*) as n, sum(qty) as sq, sum(price) as "
+               f"sp from li where shipdate <= {cut} group by rflag order by "
+               "rflag")
+        pools["group"].append((sql, None, group_oracle(li, cut, None)))
+    return pools
+
+
+def group_oracle(li, cut: int, qty_below, sums=("qty", "price")) -> list:
+    """The text rows of `select rflag, count(*), sum(<sums>) from li where
+    shipdate <= cut [and qty < qty_below] group by rflag order by rflag`."""
+    m = li["shipdate"] <= cut
+    if qty_below is not None:
+        m &= li["qty"] < qty_below
+    out = []
+    for f in range(3):
+        g = m & (li["rflag"] == f)
+        if g.any():
+            out.append((str(f), str(int(g.sum())))
+                       + tuple(str(int(li[c][g].sum())) for c in sums))
+    return out
+
+
+def serve_mix(rng, n_clients: int, n_ops: int, pools) -> list:
+    """Each client's ops: 70% range scans (half simple queries, half the
+    template through Parse/Bind/Execute), 10% aggregates, 10% top-K, 10%
+    GROUP BY over li (which bypasses the serving queue)."""
+    plans = []
+    for _c in range(n_clients):
+        ops = []
+        for u in rng.random(n_ops):
+            if u < 0.70:
+                sql, ext, want = pools["scan"][rng.integers(
+                    len(pools["scan"]))]
+                if u < 0.35:
+                    ops.append(("scan", sql, None, want))
+                else:
+                    ops.append(("execute", sql, ext, want))
+            else:
+                cls = ("agg", "topk", "group")[min(int((u - 0.70) / 0.10), 2)]
+                sql, _e, want = pools[cls][rng.integers(len(pools[cls]))]
+                ops.append((cls, sql, None, want))
+        plans.append(ops)
+    return plans
+
+
+def serve_run(srv, plans, serving: bool, beside=None) -> dict:
+    """One timed run of `plans` (one WireClient a plan) with serving on
+    or off; `beside(progress)` runs on a thread of its own meanwhile,
+    given a callable that reads how many ops the clients have finished.
+    -> the servebench-shaped report (q/s, per-class p50/p99, mismatches,
+    errors, the serving queue's deltas)."""
+    import threading
+
+    from cockroach_tpu_torch.sql import serving as _serving
+    from cockroach_tpu_torch.util.settings import Settings
+    from cockroach_tpu_torch.workload import servebench as sb
+
+    Settings().set(_serving.SERVING_ENABLED, serving)
+    queue = _serving.serving_queue()
+    # the depth and delay percentiles of this run alone
+    queue._recent_depth.clear()
+    queue._recent_delay.clear()
+    q0 = queue.snapshot()
+    mu = threading.Lock()
+    lat: dict = {}
+    errs: list = []
+    mismatch = [0]
+    done = [0]
+    gate = threading.Barrier(len(plans) + 1)
+    clients = [sb.WireClient(srv.addr) for _ in plans]
+
+    def client(c, ops):
+        gate.wait(60)
+        for cls, sql, ext, want in ops:
+            t0 = time.perf_counter()
+            rows, code = (c.query_extended(*ext) if ext is not None
+                          else c.query(sql))
+            dt = time.perf_counter() - t0
+            with mu:
+                done[0] += 1
+                if code is not None:
+                    errs.append((cls, (sql or ext[0])[:60], code))
+                elif rows != want:
+                    mismatch[0] += 1
+                else:
+                    lat.setdefault(cls, []).append(dt)
+
+    workers = [threading.Thread(target=client, args=(c, ops), daemon=True)
+               for c, ops in zip(clients, plans)]
+    for w in workers:
+        w.start()
+    side_out: dict = {}
+    side = None
+    if beside is not None:
+        side = threading.Thread(
+            target=lambda: side_out.update(beside(lambda: done[0])),
+            daemon=True)
+    from cockroach_tpu_torch.exec import stats
+
+    col = stats.enable()
+    gate.wait(60)
+    t0 = time.perf_counter()
+    if side is not None:
+        side.start()
+    for w in workers:
+        w.join(600)
+    elapsed = time.perf_counter() - t0
+    stats.disable()
+    if side is not None:
+        side.join(600)
+    if any(w.is_alive() for w in workers) or (side and side.is_alive()):
+        raise SystemExit("phase 16: a serving client did not finish")
+    q1 = _serving.serving_queue().snapshot()
+    for c in clients:
+        c.close()
+    ok = sum(len(v) for v in lat.values())
+    report = {"serving": serving, "clients": len(plans),
+              "ops": sum(len(p) for p in plans), "elapsed_s": elapsed,
+              "qps": ok / elapsed, "ok": ok, "mismatches": mismatch[0],
+              "errors": errs[:10], "n_errors": len(errs),
+              "latency": {c: sb.percentiles(v) for c, v in lat.items()},
+              "serving_queue": sb._serving_deltas((q0, q1)),
+              # host ms a dispatch (its launches and readback) and a
+              # fused replay, each the mean over the run
+              "stage_ms": {n: 1e3 * st.seconds / st.events
+                           for n, st in col.stages.items()
+                           if n in ("serving.exec", "serving.readback",
+                                    "fused.replay", "fused.readback")
+                           and st.events}}
+    report.update(side_out)
+    return report
+
+
+def serve_line(label: str, r: dict, part: str = "b") -> str:
+    sq = r["serving_queue"]
+    lat = ", ".join(f"{c} {v.get('p50_ms')}/{v.get('p99_ms')}"
+                    for c, v in sorted(r["latency"].items()))
+    return (f"  ({part}) {label}: {r['qps']:.1f} q/s ({r['ok']} ok in "
+            f"{r['elapsed_s']:.2f} s, {r['mismatches']} mismatches, "
+            f"{r['n_errors']} errors); p50/p99 ms {lat}; batched dispatches "
+            f"{sq['batched_dispatch_total']}, coalesced "
+            f"{sq['coalesced_statements']}, fallbacks {sq['fallbacks']}, "
+            f"occupancy {sq['occupancy']}, coalesce depth p50/p99 "
+            f"{sq['coalesce_depth_p50']}/{sq['coalesce_depth_p99']}, queue "
+            f"delay p50/p99 {sq['queue_delay_p50_ms']}/"
+            f"{sq['queue_delay_p99_ms']} ms; mean host ms "
+            f"{ {k: round(v, 3) for k, v in r['stage_ms'].items()} }")
+
+
+def run_phase16(torch, gen, dev, seed):
+    """Serving and the wire on the card: (a) a PgServer over phase 11's
+    TPC-H catalog: the ten SQL texts over the simple protocol (Q1 also
+    over Parse/Bind/Execute), each text's rows equal to a direct
+    Session's (held to phase 9's rows and Q1's oracle) rendered as the
+    wire renders them; cold, warm median and the wire's own cost; a warm
+    Q1 one replay with one sync, K1 once in a traced replay; (b) YCSB-E
+    over the wire (usertable, SERVE_RECORDS records on the resident
+    tier): SERVE_CLIENTS clients x SERVE_OPS ops with serving off, then
+    on, then SERVE_INSERT_OPS beside workload E's inserts on a separate
+    connection, every answer equal to numpy, no serving fallback, the
+    scan runner kept and refreshed across the inserts; (c) exact vector
+    top-K over phase 15's docs table from VEC_SERVE_CLIENTS clients, each
+    answer the per-query searcher's; (d) a CancelRequest against the
+    window over all of lineitem (57014) and a drain with one straggler
+    (57014; a new statement 57P01; new connections refused); (e)
+    CAPTURE_STATEMENTS statements that each capture a graph on a separate
+    connection while (b)'s serving-on clients run; (f) EXPERIMENTAL
+    CHANGEFEED over the wire equal to a memory-sink feed. -> (JSON
+    record, K1 launches over the wire)."""
+    import socket
+    import threading
+
+    from cockroach_tpu_torch.exec.fused import ResidentServingRunner
+    from cockroach_tpu_torch.exec.scan_cache import scan_image_cache
+    from cockroach_tpu_torch.ops.vector import ExactSearcher
+    from cockroach_tpu_torch.sql import changefeed as cfmod
+    from cockroach_tpu_torch.sql import serving as _serving
+    from cockroach_tpu_torch.sql.pgwire import PgServer
+    from cockroach_tpu_torch.sql.session import Session, SessionCatalog
+    from cockroach_tpu_torch.storage import resident as _resident
+    from cockroach_tpu_torch.storage.engine import NativeEngine
+    from cockroach_tpu_torch.storage.mvcc import MVCCStore
+    from cockroach_tpu_torch.util.hlc import HLC
+    from cockroach_tpu_torch.util.settings import Settings
+    from cockroach_tpu_torch.workload import servebench as sb
+    from cockroach_tpu_torch.workload import tpch_queries as tq
+    from cockroach_tpu_torch.workload import vectorbench
+
+    card = card_line()
+    t_phase = time.perf_counter()
+    rec: dict = {"card": card, "seed": seed}
+    part_s: dict = {}
+    rec["part_s"] = part_s
+    t_part = time.perf_counter()
+
+    def part_done(label):
+        nonlocal t_part
+        now = time.perf_counter()
+        part_s[label] = now - t_part
+        t_part = now
+
+    settings = Settings()
+    saved = {k: settings.get(k) for k in (
+        _serving.SERVING_ENABLED, _serving.COALESCE_WINDOW_MS,
+        _serving.MAX_BATCH, _resident.RESIDENT_SCAN)}
+    print(f"[16] serving and the wire on {dev} ({card})", flush=True)
+    k1_wire: dict = {}
+    cached_images = None
+    try:
+        # ---- (a) the wire over phase 11's TPC-H catalog
+        cat = pregenerated_catalog(gen)
+        direct = Session(cat, capacity=CAPACITY, device=dev)
+        srv = PgServer(cat, capacity=CAPACITY, device=dev).start()
+        client = sb.WireClient(srv.addr)
+        rf_names = gen.schema("lineitem").dicts["l_returnflag"]
+        ls_names = gen.schema("lineitem").dicts["l_linestatus"]
+        q1_oracle = tq.q1_oracle(gen)
+        rec["wire"] = {}
+        for name in PHASE11:
+            text = sql_text(name)
+            if name in SQL_RESTARTS_EXHAUSTED:
+                rows, code = client.query(text)
+                try:
+                    direct.execute(text)
+                    want = None
+                except Exception as e:  # noqa: BLE001 — its SQLSTATE
+                    want = getattr(e, "pgcode", None)
+                if code != want or code != "40001":
+                    raise SystemExit(f"wire {name}: SQLSTATE {code}, the "
+                                     f"session's {want}, expected 40001")
+                rec["wire"][name] = {"pgcode": code}
+                print(f"  (a) wire {name}: SQLSTATE {code}, as the "
+                      f"session's", flush=True)
+                continue
+            _k, res, schema = direct.execute(text)
+            if name == "q1":
+                check_q1(res, q1_oracle, rf_names, ls_names)
+            elif sql_rows(name, res) != STREAMING_ROWS[name]:
+                raise SystemExit(f"wire {name}: the session's rows differ "
+                                 f"from phase 9's")
+            want = wire_rows(res, schema)
+            session_warm = []
+            for _ in range(WIRE_WARM_RUNS):
+                t0 = time.perf_counter()
+                direct.execute(text)
+                session_warm.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            rows, code = client.query(text)
+            cold_s = time.perf_counter() - t0
+            warm = []
+            for i in range(WIRE_WARM_RUNS + 1):
+                if code is not None or rows != want:
+                    raise SystemExit(f"wire {name} run {i}: SQLSTATE "
+                                     f"{code}, {len(rows)} rows; the "
+                                     f"session's {len(want)} rows differ")
+                if i == WIRE_WARM_RUNS:
+                    break
+                t0 = time.perf_counter()
+                rows, code = client.query(text)
+                warm.append(time.perf_counter() - t0)
+            warm_s = statistics.median(warm)
+            sess_s = statistics.median(session_warm)
+            rec["wire"][name] = {"cold_s": cold_s, "warm_s": warm_s,
+                                 "warm_runs_s": warm,
+                                 "session_warm_s": sess_s,
+                                 "own_cost_s": warm_s - sess_s,
+                                 "rows": len(rows)}
+            print(f"  (a) wire {name}: {len(rows)} rows equal to the "
+                  f"session's; cold {cold_s * 1e3:.1f} ms, warm median "
+                  f"{warm_s * 1e3:.3f} ms, session warm median "
+                  f"{sess_s * 1e3:.3f} ms, the wire's own cost "
+                  f"{(warm_s - sess_s) * 1e3:.3f} ms", flush=True)
+        q1 = sql_text("q1")
+        want_q1 = wire_rows(*direct.execute(q1)[1:])
+        for i in range(2):
+            rows, code = client.query_extended(q1, ())
+            if code is not None or rows != want_q1:
+                raise SystemExit(f"wire q1 over Parse/Bind/Execute run {i}: "
+                                 f"SQLSTATE {code}, rows differ")
+        rows, code, dt, syncs, events, launches = wire_run(torch, client, q1)
+        runner = wire_session(srv, client)._prepared[q1].op._fused_runner
+        if (code is not None or rows != want_q1
+                or events.get(WIRE_RUN_EVENT) != 1
+                or events.get("fused.capture") or syncs != 1
+                or runner.last.get("mode") != WARM_MODE
+                or launches.get("dense_sums") != FUSED_K1["q1"]):
+            raise SystemExit(f"wire q1 warm: {events}, {syncs} syncs, "
+                             f"{launches}, {runner.last.get('mode')}: "
+                             f"expected one replay, 1 sync, K1 once")
+        trace_dir = os.path.join(os.path.dirname(os.path.abspath(
+            __file__)), "build", "phase16_traces")
+        os.makedirs(trace_dir, exist_ok=True)
+        reading = traced_replay_reading(
+            torch, None, q1, os.path.join(trace_dir, "q1_wire"),
+            run=lambda t: client.query(t),
+            mode_of=lambda: runner.last.get("mode"))
+        if reading["dense_sums"] != FUSED_K1["q1"] \
+                or reading["mode"] != WARM_MODE:
+            raise SystemExit(f"wire q1 traced replay: {reading}")
+        k1_wire = {"q1_wire": launches["dense_sums"],
+                   "q1_wire_traced": reading["dense_sums"]}
+        rec["wire"]["q1_extended_equal"] = True
+        rec["wire"]["q1_warm"] = {"s": dt, "syncs": syncs,
+                                  "events": events, "trace": reading}
+        print(f"  (a) wire q1 over Parse/Bind/Execute equal; a warm wire "
+              f"q1 {dt * 1e3:.3f} ms, one replay, {syncs} sync, dense_sums "
+              f"{launches['dense_sums']}; traced replay: {reading}",
+              flush=True)
+        part_done("a")
+
+        # ---- (d) cancel and drain over the wire (this server's end)
+        victim = sb.WireClient(srv.addr)
+        out: dict = {}
+
+        def victim_run(c, key):
+            out[key] = c.query(WINDOW_SQL_ALL)
+            out[key + "_t"] = time.perf_counter()
+
+        th = threading.Thread(target=victim_run, args=(victim, "cancel"))
+        th.start()
+        time.sleep(CANCEL_AFTER_S)
+        t_cancel = time.perf_counter()
+        sb.send_cancel(srv.addr, *victim.key)
+        th.join(120)
+        if th.is_alive() or out["cancel"][1] != "57014":
+            raise SystemExit(f"(d) CancelRequest: {out.get('cancel', ('', '?'))[1]}"
+                             f", expected 57014")
+        cancel_ms = (out["cancel_t"] - t_cancel) * 1e3
+        straggler = sb.WireClient(srv.addr)
+        idle = sb.WireClient(srv.addr)
+        th = threading.Thread(target=victim_run, args=(straggler, "drain"))
+        th.start()
+        time.sleep(CANCEL_AFTER_S / 2)
+        drained: dict = {}
+        dth = threading.Thread(target=lambda: drained.update(
+            srv.drain(timeout=30, grace=DRAIN_GRACE_S)))
+        t_drain = time.perf_counter()
+        dth.start()
+        while not srv.draining():
+            time.sleep(0.001)
+        _rows, idle_code = idle.query(COUNT_REGION)
+        dth.join(60)
+        th.join(60)
+        refused = False
+        try:
+            socket.create_connection(srv.addr, timeout=2).close()
+        except OSError:
+            refused = True
+        drain_s = time.perf_counter() - t_drain
+        if (th.is_alive() or dth.is_alive() or out["drain"][1] != "57014"
+                or idle_code != "57P01" or not refused
+                or drained.get("forced")):
+            raise SystemExit(f"(d) drain: straggler {out.get('drain')}, new "
+                             f"statement {idle_code}, refused {refused}, "
+                             f"{drained}")
+        for c in (client, victim, straggler, idle):
+            c.close()
+        rec["cancel"] = {"cancel_ms": cancel_ms, "drain_s": drain_s,
+                         "drain": drained}
+        print(f"  (d) CancelRequest against the window over all of "
+              f"lineitem: 57014 {cancel_ms:.1f} ms after the cancel; drain "
+              f"with a straggler: 57014, a new statement 57P01, new "
+              f"connections refused, {drained}, {drain_s:.2f} s",
+              flush=True)
+        part_done("d")
+
+        # ---- (b) YCSB-E over the wire, (e) captures beside it, (f); the
+        # cache's images held aside (on the card) so that the resident
+        # pin is not refused for them
+        cached_images = scan_image_cache().snapshot()
+        scan_image_cache().clear()
+        settings.set(_resident.RESIDENT_SCAN, True)
+        rng = np.random.default_rng(seed)
+        store = MVCCStore(engine=NativeEngine(), clock=HLC(), device=dev)
+        scat = SessionCatalog(store)
+        user, li, load_s = serve_tables(store, scat, rng)
+        pools = serve_pools(rng, user, li)
+        ssrv = PgServer(scat, capacity=SERVE_CAPACITY, device=dev).start()
+        warmc = sb.WireClient(ssrv.addr)
+        t0 = time.perf_counter()
+        for cls in ("scan", "agg", "topk", "group"):
+            for sql, ext, want in pools[cls]:
+                for i in range(2):
+                    rows, code = warmc.query(sql)
+                    if code is not None or rows != want:
+                        raise SystemExit(f"(b) warm-up {cls} {sql[:60]}: "
+                                         f"SQLSTATE {code}, rows differ "
+                                         f"from numpy")
+                    if ext is not None:
+                        rows, code = warmc.query_extended(*ext)
+                        if code is not None or rows != want:
+                            raise SystemExit(f"(b) warm-up bind {ext[1]}: "
+                                             f"{code}")
+        warm_s = time.perf_counter() - t0
+        settings.set(_serving.COALESCE_WINDOW_MS, -1.0)
+        settings.set(_serving.MAX_BATCH, 64)
+        _serving.serving_queue().prewarm(max_batch=SERVE_CLIENTS)
+        print(f"  (b) usertable {SERVE_RECORDS} records x {SERVE_FIELDS} "
+              f"fields and li {SERVE_LI_ROWS} rows loaded in {load_s:.2f} s "
+              f"(resident tier on); the pools' {sum(map(len, pools.values()))}"
+              f" texts warmed in {warm_s:.2f} s", flush=True)
+        plans = serve_mix(rng, SERVE_CLIENTS, SERVE_OPS, pools)
+        off = serve_run(ssrv, plans, serving=False)
+        print(serve_line("serving off", off), flush=True)
+
+        cap_texts = [
+            ("select rflag, count(*) as n, sum(price) as sp from li where "
+             f"shipdate <= {300 + i} and qty < {10 + i} group by rflag "
+             "order by rflag", group_oracle(li, 300 + i, 10 + i, ("price",)))
+            for i in range(CAPTURE_STATEMENTS)]
+
+        def captures(progress):
+            c = sb.WireClient(ssrv.addr)
+            sess = wire_session(ssrv, c)
+            modes, errs, during = [], [], []
+            for sql, want in cap_texts:
+                rows, code = c.query(sql)
+                if code is not None or rows != want:
+                    errs.append((sql[:60], code))
+                modes.append(sess._prepared[sql].op._fused_runner.last.get(
+                    "mode") if sql in sess._prepared else None)
+                during.append(progress())
+            c.close()
+            return {"captures": {"modes": modes, "errors": errs,
+                                 "clients_done_at_each": during}}
+
+        on = serve_run(ssrv, plans, serving=True, beside=captures)
+        print(serve_line("serving on", on), flush=True)
+        total = sum(len(p) for p in plans)
+        cap = on["captures"]
+        print(f"  (e) {CAPTURE_STATEMENTS} statements beside the serving "
+              f"clients: modes {cap['modes']}, errors {cap['errors']}, "
+              f"client ops done at each {cap['clients_done_at_each']} of "
+              f"{total}", flush=True)
+        for label, r in (("off", off), ("on", on)):
+            if r["mismatches"] or r["n_errors"] or r["ok"] != total:
+                raise SystemExit(f"(b) serving {label}: {r['mismatches']} "
+                                 f"mismatches, errors {r['errors']}")
+        if on["serving_queue"]["fallbacks"] \
+                or not on["serving_queue"]["batched_dispatch_total"]:
+            raise SystemExit(f"(b) serving on: {on['serving_queue']}")
+        if cap["errors"] or any(m != COLD_MODE for m in cap["modes"]):
+            raise SystemExit(f"(e) captures beside serving: {cap}")
+        part_done("b_e")
+
+        # the inserts beside serving: the scan class's runner must stay
+        # (a write-stable key) and refresh its image
+        def scan_runners():
+            q = _serving.serving_queue()
+            with q._runners_mu:
+                return {k: r for k, r in q._runners.items()
+                        if k[0] == "scan" and k[1] == "usertable"}
+
+        before = scan_runners()
+        key_before = scat.serving_image_key("usertable", SERVE_CAPACITY)
+        imgs_before = {k: (r._img, r.n) for k, r in before.items()}
+        ins_rows = []
+        n_ins = max(1, round(SERVE_CLIENTS * SERVE_INSERT_OPS * 0.05 / 0.95))
+        irng = np.random.default_rng(seed + 1)
+
+        def inserts(progress):
+            c = sb.WireClient(ssrv.addr)
+            total_ops = SERVE_CLIENTS * SERVE_INSERT_OPS
+            errs, t_ins = [], []
+            for i in range(n_ins):
+                while progress() < i * total_ops // n_ins:
+                    time.sleep(0.0005)
+                vals = [INSERT_BASE + i] + [int(v) for v in irng.integers(
+                    0, 1 << 31, SERVE_FIELDS)]
+                t0 = time.perf_counter()
+                _r, code = c.query("insert into usertable values (%s)"
+                                   % ", ".join(map(str, vals)))
+                t_ins.append(time.perf_counter() - t0)
+                if code is not None:
+                    errs.append(code)
+                ins_rows.append(tuple(str(v) for v in vals))
+            c.close()
+            return {"inserts": {"n": n_ins, "errors": errs,
+                                "p50_ms": statistics.median(t_ins) * 1e3}}
+
+        ins_plans = serve_mix(rng, SERVE_CLIENTS, SERVE_INSERT_OPS, pools)
+        ins = serve_run(ssrv, ins_plans, serving=True, beside=inserts)
+        print(serve_line("serving on beside the inserts", ins), flush=True)
+        after = scan_runners()
+        key_after = scat.serving_image_key("usertable", SERVE_CAPACITY)
+        readc = sb.WireClient(ssrv.addr)
+        rows, code = readc.query(
+            f"select {', '.join(USER_COLS)} from usertable where pk >= "
+            f"{INSERT_BASE} and pk < {INSERT_BASE + n_ins} order by pk")
+        kept = bool(before) and set(before) == set(after) and all(
+            after[k] is r and isinstance(r, ResidentServingRunner)
+            for k, r in before.items())
+        # a runner refreshes at its next dispatch after a write
+        refreshed = kept and any(
+            after[k]._img is not imgs_before[k][0]
+            and after[k].n > imgs_before[k][1] for k in after)
+        n_total = SERVE_CLIENTS * SERVE_INSERT_OPS
+        if (ins["mismatches"] or ins["n_errors"] or ins["ok"] != n_total
+                or ins["serving_queue"]["fallbacks"]
+                or ins["inserts"]["errors"] or key_before != key_after
+                or not kept or not refreshed or code is not None
+                or rows != ins_rows):
+            raise SystemExit(
+                f"(b) inserts beside serving: mismatches "
+                f"{ins['mismatches']}, errors {ins['errors']}, fallbacks "
+                f"{ins['serving_queue']['fallbacks']}, key stable "
+                f"{key_before == key_after}, runner kept {kept}, refreshed "
+                f"{refreshed}, read-back {code} {len(rows)}/{len(ins_rows)}")
+        print(f"  (b) {n_ins} inserts (p50 {ins['inserts']['p50_ms']:.2f} ms) "
+              f"beside serving: the scan runners kept "
+              f"({len(after)}), serving_image_key stable, images refreshed "
+              f"to {[r.n for r in after.values()]} rows; the inserted range "
+              f"reads back", flush=True)
+        readc.close()
+        rec["ycsb_wire"] = {"load_s": load_s, "warm_s": warm_s, "off": off,
+                            "on": on, "inserts": ins,
+                            "speedup": on["qps"] / off["qps"]}
+        part_done("b_inserts")
+
+        # ---- (f) EXPERIMENTAL CHANGEFEED over the wire
+        fc = sb.WireClient(ssrv.addr)
+        fc.query("create table cfw (k int primary key, grp int not null, "
+                 "v int)")
+        frng = np.random.default_rng(seed + 2)
+        ks = np.arange(CF_WIRE_ROWS)
+        grps = frng.integers(0, 64, CF_WIRE_ROWS)
+        vs = frng.integers(0, 100_000, CF_WIRE_ROWS)
+        for a in range(0, CF_WIRE_ROWS, INSERT_ROWS):
+            _r, code = fc.query("insert into cfw values " + ",".join(
+                "(%d,%d,%d)" % (ks[j], grps[j], vs[j])
+                for j in range(a, min(a + INSERT_ROWS, CF_WIRE_ROWS))))
+            if code is not None:
+                raise SystemExit(f"(f) insert: {code}")
+        t0 = time.perf_counter()
+        rows, code = fc.query("experimental changefeed for cfw with "
+                              f"max_polls = 1, limit = {CF_WIRE_ROWS}")
+        cf_s = time.perf_counter() - t0
+        sink = cfmod.MemorySink()
+        cfmod.ChangefeedStream(store, scat.desc("cfw"), sink).poll()
+        got = [json.loads(r[0]) for r in rows]
+        got = [e for e in got if "resolved" not in e]
+        fc.close()
+        if code is not None or got != sink.events() \
+                or len(got) != CF_WIRE_ROWS:
+            raise SystemExit(f"(f) changefeed over the wire: {code}, "
+                             f"{len(got)} envelopes, the memory sink's "
+                             f"{len(sink.events())}")
+        rec["changefeed_wire"] = {"envelopes": len(got), "s": cf_s}
+        print(f"  (f) EXPERIMENTAL CHANGEFEED over the wire: {len(got)} "
+              f"envelopes in {cf_s * 1e3:.1f} ms, equal to a memory-sink "
+              f"feed's", flush=True)
+        ssrv.drain(timeout=10)
+        part_done("f")
+
+        # ---- (c) exact vector top-K from concurrent clients
+        settings.set(_resident.RESIDENT_SCAN, False)
+        vrng = np.random.default_rng(seed)
+        vecs, _assign = vectorbench.make_dataset(VEC_N, VEC_D, VEC_CLUSTERS,
+                                                 vrng)
+        vstore = MVCCStore(engine=NativeEngine(), clock=HLC(), device=dev)
+        vcat = SessionCatalog(vstore)
+        docs_load(vstore, vcat, vecs, vrng.integers(0, 8, VEC_N))
+        qs = vectorbench.make_queries(vecs, VEC_SERVE_CLIENTS
+                                      * VEC_SERVE_OPS, vrng)
+        ids, _d = ExactSearcher(vecs, "l2", VEC_SERVE_K,
+                                device=dev).search_batch(qs)
+        # each query alone, as the per-query searcher answers it
+        searcher = ExactSearcher(vecs, "l2", VEC_SERVE_K, device=dev)
+        want = [searcher.search(q)[0] for q in qs]
+        if any(not np.array_equal(w, b) for w, b in zip(want, ids)):
+            raise SystemExit("(c) the searcher batched differs from per "
+                             "query")
+        vsrv = PgServer(vcat, capacity=1 << 13, device=dev).start()
+        tmpl = (f"select id from docs order by emb <-> $1 limit "
+                f"{VEC_SERVE_K}")
+        vplans = [[("vector", None, (tmpl, (vec_text(qs[c * VEC_SERVE_OPS
+                                                        + i]),)),
+                    [(str(int(x)),) for x in want[c * VEC_SERVE_OPS + i]])
+                   for i in range(VEC_SERVE_OPS)]
+                  for c in range(VEC_SERVE_CLIENTS)]
+        wc = sb.WireClient(vsrv.addr)
+        rows, code = wc.query_extended(*vplans[0][0][2])
+        wc.close()
+        if code is not None or rows != vplans[0][0][3]:
+            raise SystemExit(f"(c) first vector query: {code}")
+        vec = serve_run(vsrv, vplans, serving=True)
+        print(serve_line(f"{VEC_SERVE_CLIENTS} clients x {VEC_SERVE_OPS} "
+                         f"exact top-{VEC_SERVE_K}", vec, part="c"),
+              flush=True)
+        if (vec["mismatches"] or vec["n_errors"]
+                or vec["serving_queue"]["fallbacks"]
+                or vec["ok"] != VEC_SERVE_CLIENTS * VEC_SERVE_OPS):
+            raise SystemExit(f"(c) vectors over the wire: {vec['mismatches']}"
+                             f" mismatches, {vec['errors']}, fallbacks "
+                             f"{vec['serving_queue']['fallbacks']}")
+        rec["vectors_wire"] = vec
+        vsrv.drain(timeout=10)
+        part_done("c")
+    finally:
+        for k, v in saved.items():
+            settings.set(k, v)
+        if cached_images is not None:
+            scan_image_cache().clear()
+            scan_image_cache().restore(cached_images)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase 16: {rec['phase_s']:.1f} s ({ {k: round(v, 1) for k, v in part_s.items()} })",
+          flush=True)
+    return rec, k1_wire
 
 
 def main() -> int:
@@ -5437,6 +6254,9 @@ def main() -> int:
     records15 = run_phase15(torch, gen, dev, args.seed)
     scan_image_cache().restore(cached_images)
     del cached_images
+    # ---- 16. serving and the wire: (a) and (d) over phase 11's images,
+    # the rest on stores of their own (the images held aside inside)
+    records16, k1_wire = run_phase16(torch, gen, dev, args.seed)
 
     kernels = [{
         "name": "dense_sums",
@@ -5452,7 +6272,7 @@ def main() -> int:
                 "fused_k1_traced"] for q in FUSED_K1},
             **{f"{q}_sql": n for q, n in k1_sql.items()},
             **k1_mvcc, **k1_session,
-            "q1_traced_session": k1_traced_session},
+            "q1_traced_session": k1_traced_session, **k1_wire},
         "sql_traces": {q: records11[q]["k1_traces"] for q in k1_sql},
         "max_abs_err": worst,
         "ms": kernel_ms,
@@ -5462,7 +6282,7 @@ def main() -> int:
         "library_ms": library_ms,
         "at_shapes": {"q1": q1_shape, **k1_shapes, **fused_shapes},
     }]
-    print(f"[16] whole run {time.perf_counter() - t_start:.1f} s",
+    print(f"[17] whole run {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"q1": q1_record}))
     for name in PHASE6 + PHASE7 + PHASE8:
@@ -5474,6 +6294,7 @@ def main() -> int:
     print(json.dumps({"phase13": records13}))
     print(json.dumps({"phase14": records14}))
     print(json.dumps({"phase15": records15}))
+    print(json.dumps({"phase16": records16}, default=str))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

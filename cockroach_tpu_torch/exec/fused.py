@@ -67,12 +67,50 @@ steps down to the streaming tier (`resilience.degrade.fused`), where the
 JAX runner hands the run to the streaming operators itself
 (`fused.fallback_oom`).
 
-Not ported yet: `compile_via_vault` and `aot_compile` (the plan vault)
-and the serving runners (ROADMAP.md queue 1, item 8); neither exists in
-the port, so `_validate` refuses any operator it does not know, the
-invariants checker (exec/invariants.py CheckedOp), the row engine
-(exec/rowexec.py RowMapOp) and a grace level's sub-join among them, as
-the JAX tracer does.
+Captures beside other threads. Sessions on other threads (pgwire
+connections, serving leaders) replay graphs, dispatch serving batches
+and read results back while one session captures. Four rules keep the
+graphs safe among them: captures run one at a time in the process
+(`_CAPTURE_MU`: every graph captures into one pool); a replay and the
+readback of its packed result are one step under `_REPLAY_MU` (another
+graph's temporaries may lie over that result in the shared pool); a
+capture uses
+CUDA's thread-local capture mode, so only the capturing thread's own
+synchronizing calls are refused (and raise, which is the guard that the
+program never reads the device inside a capture), while another
+thread's sync, allocation or replay neither fails nor invalidates it;
+and the kernels' launches recorded by a capture are counted on the
+capturing thread only (ops/cuda_kernels.py `record_launches`), so
+another thread's eager launch meanwhile is not mistaken for one of the
+graph's. The process-wide `torch.cuda.set_sync_debug_mode` is not
+touched, since any other thread's readback would raise under it.
+
+The serving runners (the JAX module's :1106-1949): `_BucketPrograms`,
+`ServingScanRunner`, `ResidentServingRunner`, `build_serving_runner`,
+`_snapshot_columns`, `_prefix_payload`, `ServingAggRunner`,
+`ServingTopKRunner`, `ServingVectorRunner` and
+`build_serving_batch_runner`. Each JAX `one(...)` under `jax.vmap` is
+here one batched computation over a (B, window) lane grid
+(`start[:, None] + lanes[None, :]`, the start found by arithmetic over
+contiguous keys or by `torch.searchsorted`), run eagerly: a dispatch is
+one copy of the lane parameters, the ops, and one readback of a packed
+int64 result. A batch pads to its pow2 bucket, whose padded lanes
+occupancy counts as dispatched; `_cache_size()` counts the bucket
+shapes a runner has run, where the JAX runner counts its per-bucket AOT
+executables. Departures: a runner is built on the leader session's
+device (a resident runner on its table's); `build_serving_runner` takes
+the host snapshot only when the resident tier cannot serve, device
+memory runs out, or a transient fault outlasts its retries (the port's
+rule, storage/mvcc.py `resident_columns`), where the JAX
+`build_serving_runner` falls back on every error; the vector runner
+pads its image to 16 rows so the CUDA reduction of each distance takes
+the per-statement path's block shape.
+
+Not ported yet: `compile_via_vault` and `aot_compile` (the plan vault,
+ROADMAP.md queue 1, item 8e); `_validate` refuses any operator it does
+not know, the invariants checker (exec/invariants.py CheckedOp), the
+row engine (exec/rowexec.py RowMapOp) and a grace level's sub-join
+among them, as the JAX tracer does.
 """
 
 from __future__ import annotations
@@ -735,13 +773,21 @@ class _Graph(NamedTuple):
 
 
 _POOLS: Dict[tuple, tuple] = {}
+# held by every graph capture in the process (FusedRunner._capture)
+_CAPTURE_MU = threading.Lock()
+# held from a graph's replay to the end of its readback: the graphs share
+# one pool, so another graph's replay between them could overwrite the
+# packed result before it is read
+_REPLAY_MU = threading.Lock()
 
 
 def _graph_pool(device) -> tuple:
     """One memory pool for every fused graph on `device`. The graphs
-    replay one at a time on the current stream, and each run copies its
-    packed result out before the next replay, so a graph's temporaries
-    may reuse another's: only each graph's packed result stays live."""
+    replay one at a time (`_REPLAY_MU`, across threads), and each run
+    copies its packed result out before the next replay, so a graph's
+    temporaries may reuse another's: only each graph's packed result
+    stays live (and another graph's temporaries may lie over it, which is
+    why a replay and its readback are one step under the lock)."""
     key = (device.type, device.index)
     if key not in _POOLS:
         _POOLS[key] = torch.cuda.graph_pool_handle()
@@ -765,8 +811,9 @@ class FusedRunner:
     captured in a CUDA graph once per (config key, warm key): an eager
     warm-up on a side stream first (it fills the expression tables and
     the kernels' attribute caches, and its deferred flags are checked
-    before anything is captured), then the capture under
-    `torch.cuda.set_sync_debug_mode("error")`. Every run, the cold one
+    before anything is captured), then the capture in CUDA's thread-local
+    capture mode, in which a synchronizing call of the capturing thread
+    raises. Every run, the cold one
     included, reads the result of a replay. A superseded graph (a restart
     widened an operator, or an image changed) is dropped; every fused
     graph on a device shares one memory pool (`_graph_pool`). A graph
@@ -916,55 +963,63 @@ class FusedRunner:
         # a config that restarts is not worth a capture
         self._result(self._readback(warm.packed), warm)
         del warm
-        kernels = _kernels()
-        saved = {k: k.launches for k in kernels}
-        # the capture empties the allocator's cache first; so does this,
-        # so that what the capture reserves is the pool's growth
-        torch.cuda.synchronize(device)
-        torch.cuda.empty_cache()
-        before = torch.cuda.memory_reserved(device)
-        graph = torch.cuda.CUDAGraph()
-        tables: list = []
-        t0 = _time.perf_counter()
-        # no cyclic garbage collection while the capture records: one that
-        # frees an unreachable operator tree (its graph, its images)
-        # invalidates the capture and leaves the graph pool recording
-        # (torch.cuda.graph collects once before the capture begins)
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            with stats.timed("fused.capture"):
-                with torch.cuda.graph(graph, pool=_graph_pool(device)):
-                    mode = torch.cuda.get_sync_debug_mode()
-                    torch.cuda.set_sync_debug_mode("error")
-                    hold_rank_tables(tables)
-                    try:
-                        prog = self._trace(images)
-                    finally:
-                        hold_rank_tables(None)
-                        torch.cuda.set_sync_debug_mode(mode)
-        finally:
-            if collecting:
-                gc.enable()
-        capture_s = _time.perf_counter() - t0
-        # a capture launches nothing: the launches it recorded are the
-        # ones every replay makes
-        launches = {}
-        for k in kernels:
-            launches[k.source.stem] = k.launches - saved[k]
-            k.launches = saved[k]
-        g = _Graph(key, graph, prog, launches,
-                   torch.cuda.memory_reserved(device) - before, capture_s,
+        from cockroach_tpu_torch.ops.cuda_kernels import record_launches
+
+        # one capture at a time in the process: every fused graph
+        # captures into one pool (_graph_pool), and the pool's free blocks
+        # are handed to one capture at a time
+        with _CAPTURE_MU:
+            # the capture empties the allocator's cache first; so does
+            # this, so that what the capture reserves is the pool's growth
+            torch.cuda.synchronize(device)
+            torch.cuda.empty_cache()
+            before = torch.cuda.memory_reserved(device)
+            graph = torch.cuda.CUDAGraph()
+            tables: list = []
+            # a capture launches nothing: the launches it records on this
+            # thread are the ones every replay makes, and another thread's
+            # launches meanwhile stay in the kernels' counts
+            launches: dict = {}
+            t0 = _time.perf_counter()
+            # no cyclic garbage collection while the capture records: one
+            # that frees an unreachable operator tree (its graph, its
+            # images) invalidates the capture and leaves the graph pool
+            # recording (torch.cuda.graph collects once before the capture
+            # begins)
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                with stats.timed("fused.capture"):
+                    # thread_local: CUDA refuses (and raises on) a
+                    # synchronizing call of this thread only, so other
+                    # sessions' replays, serving dispatches and readbacks
+                    # go on beside the capture
+                    with torch.cuda.graph(graph, pool=_graph_pool(device),
+                                          capture_error_mode="thread_local"):
+                        hold_rank_tables(tables)
+                        record_launches(launches)
+                        try:
+                            prog = self._trace(images)
+                        finally:
+                            record_launches(None)
+                            hold_rank_tables(None)
+            finally:
+                if collecting:
+                    gc.enable()
+            capture_s = _time.perf_counter() - t0
+            pool_bytes = torch.cuda.memory_reserved(device) - before
+        g = _Graph(key, graph, prog, launches, pool_bytes, capture_s,
                    (tuple(images.values()), tuple(tables)))
         self._graph = g
         return g
 
     def _replay(self, g: _Graph) -> np.ndarray:
-        with stats.timed("fused.replay"):
-            g.graph.replay()
-            for k in _kernels():
-                k.launches += g.launches.get(k.source.stem, 0)
-        return self._readback(g.prog.packed)
+        with _REPLAY_MU:
+            with stats.timed("fused.replay"):
+                g.graph.replay()
+                for k in _kernels():
+                    k.count_launch(g.launches.get(k.source.stem, 0))
+            return self._readback(g.prog.packed)
 
     def _execute(self, device, images: Dict, vkey) -> Tuple[np.ndarray,
                                                            _Program]:
@@ -1091,3 +1146,809 @@ def try_compile(op: Operator) -> Optional[FusedRunner]:
     except Unsupported:
         return None
     return FusedRunner(op)
+
+
+# -------------------------------------------------------------- serving --
+
+
+class _BucketPrograms:
+    """Per-pow2-bucket record of a serving runner. The JAX runner holds an
+    AOT executable per bucket; here a bucket's program is the same eager
+    batched ops at that padded shape, and `progs` records each shape the
+    runner has dispatched or pre-warmed, so `_cache_size()` (jit's probe
+    name) counts program shapes as the JAX runner's does."""
+
+    def __init__(self):
+        self.progs: Dict[object, tuple] = {}
+
+    def _cache_size(self) -> int:
+        return len(self.progs)
+
+
+def _contiguous_base(pks: np.ndarray) -> Optional[int]:
+    """pks[0] when the keys are pks[0], pks[0] + 1, ... (then a range
+    locates its start by arithmetic), else None (a binary search)."""
+    n = len(pks)
+    if n and np.array_equal(pks, pks[0] + np.arange(n)):
+        return int(pks[0])
+    return None
+
+
+class _ServingDispatch:
+    """What every serving runner shares: its device, the bucket record,
+    and the one host-to-device copy of a batch's lane parameters and the
+    one readback of its packed result that each dispatch makes. A
+    dispatch runs under the runner's lock: the staging buffers (pinned on
+    CUDA) are the runner's, and concurrent leaders of one group's runner
+    take turns."""
+
+    def _init_dispatch(self, device) -> None:
+        from cockroach_tpu_torch import resolve_device
+
+        self.device = resolve_device(device)
+        self._batched = _BucketPrograms()
+        self._run_mu = threading.Lock()
+        self._stage: Dict[torch.dtype, torch.Tensor] = {}
+        self._host: Optional[torch.Tensor] = None
+
+    def compile_bucket(self, batch: int) -> bool:
+        """Record the program of `batch`'s pow2 bucket without
+        dispatching (the JAX pre-warm job's entry point); False for an
+        empty table, which dispatches nothing."""
+        if self.n == 0:
+            return False
+        self._note_bucket(_pow2_at_least(max(int(batch), 1)))
+        return True
+
+    def _note_bucket(self, key) -> None:
+        if key not in self._batched.progs:
+            with stats.timed("serving.compile"):
+                self._batched.progs[key] = (key,)
+
+    def _to_device(self, arr: np.ndarray) -> torch.Tensor:
+        """A host array of lane parameters on the runner's device: one
+        copy, from a pinned staging buffer on CUDA."""
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+        if self.device.type != "cuda":
+            return t.to(self.device)
+        buf = self._stage.get(t.dtype)
+        if buf is None or buf.numel() < t.numel():
+            buf = torch.empty(max(t.numel(), 1024), dtype=t.dtype,
+                              pin_memory=True)
+            self._stage[t.dtype] = buf
+        view = buf[:t.numel()].view(t.shape)
+        view.copy_(t)
+        return view.to(self.device, non_blocking=True)
+
+    def _readback(self, packed: torch.Tensor) -> np.ndarray:
+        """The packed int64 result on the host: one copy, one
+        synchronization (a copy of the pinned buffer, which the next
+        dispatch reuses)."""
+        if packed.device.type != "cuda":
+            return packed.numpy().copy()
+        with stats.timed("serving.readback", bytes=8 * packed.numel()):
+            if self._host is None or self._host.numel() < packed.numel():
+                self._host = torch.empty(packed.numel(), dtype=torch.int64,
+                                         pin_memory=True)
+            host = self._host[:packed.numel()]
+            host.copy_(packed, non_blocking=True)
+            torch.cuda.current_stream(packed.device).synchronize()
+            return host.numpy().copy()
+
+
+class _RowRunner(_ServingDispatch):
+    """The row classes (scan, resident scan, top-K): `run(los, his,
+    lims)` gives each lane's window rows and its count; `serve` demuxes
+    each member's prefix."""
+
+    def serve(self, specs):
+        """Uniform serving-queue entry point: one payload per member
+        spec (collect()-shaped dicts), lane params pulled off the specs."""
+        los = np.asarray([s.lo for s in specs], np.int64)
+        his = np.asarray([s.hi for s in specs], np.int64)
+        lims = np.asarray(
+            [self.window if s.limit is None
+             else min(s.limit, self.window) for s in specs], np.int64)
+        vals, valid, counts = self.run(los, his, lims)
+        return [_prefix_payload(self.names, vals[i], valid[i],
+                                int(counts[i]))
+                for i in range(len(specs))]
+
+    def prewarm_batch(self, batch: int) -> None:
+        z = np.zeros(batch, dtype=np.int64)
+        self.run(z, z, np.full(batch, self.window, dtype=np.int64))
+
+
+def _pad_lanes(arrs, bucket: int):
+    """Each (b,) int64 lane array padded with zeros to `bucket` lanes."""
+    return [np.concatenate([a, np.zeros(bucket - len(a), np.int64)])
+            if len(a) < bucket else a for a in arrs]
+
+
+def _unpack_rows(host: np.ndarray, b: int, bucket: int, c: int, w: int):
+    """(values (b, C, W), valid (b, C, W), counts (b,)) out of a packed
+    row-class readback."""
+    m = bucket * c * w
+    vals = host[:m].reshape(bucket, c, w)[:b]
+    valid = host[m:2 * m].reshape(bucket, c, w)[:b].astype(bool)
+    counts = host[2 * m:2 * m + bucket][:b].astype(np.int32)
+    return vals, valid, counts
+
+
+def _pack_rows(vals: torch.Tensor, valid: torch.Tensor,
+               counts: torch.Tensor) -> torch.Tensor:
+    return torch.cat([vals.reshape(-1), valid.reshape(-1).to(torch.int64),
+                      counts.to(torch.int64)])
+
+
+def _empty_rows(b: int, c: int, w: int):
+    return (np.zeros((b, c, w), np.int64), np.zeros((b, c, w), bool),
+            np.zeros(b, np.int32))
+
+
+def _range_lanes(keys: torch.Tensor, lo: torch.Tensor, n: int,
+                 pk0: Optional[int], lanes: torch.Tensor):
+    """(idx, cidx) of a batch's windows: lane j of row i reads key
+    position start_i + j, start_i located by arithmetic over contiguous
+    keys (`pk0`) or by a binary search over the sorted keys; cidx clamps
+    to the last row (its lanes are masked by idx < n)."""
+    if pk0 is not None:
+        start = (lo - pk0).clamp(0, n)
+    else:
+        start = torch.searchsorted(keys, lo)
+    idx = start[:, None] + lanes[None, :]
+    return idx, idx.clamp_max(keys.shape[0] - 1)
+
+
+def _lexsort_rows(keys: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The stable lexicographic order along dim 1 of (B, W) int64 keys,
+    least significant first (jnp.lexsort's contract, batched): one stable
+    argsort per key, the later ones over the earlier order."""
+    perm = None
+    for k in keys:
+        kk = k if perm is None else k.gather(1, perm)
+        p = torch.argsort(kk, dim=1, stable=True)
+        perm = p if perm is None else perm.gather(1, p)
+    return perm
+
+
+class ServingScanRunner(_RowRunner):
+    """Batch-shaped program variant for the cross-session serving queue
+    (sql/serving.py): one table's pk-sorted projection held on the device
+    plus a batched range-scan micro-program over it — the JAX runner's
+    `jax.vmap` of one lane function is here one computation over a
+    (B, window) lane grid.
+
+    Row i of the grid locates its [lo, hi) pk range (arithmetic when the
+    keys are contiguous, binary search otherwise), gathers a static
+    `window` of rows, and masks lanes past the range end / LIMIT. Every
+    mask term — idx < n, pk >= lo, pk < hi, lane < lim — holds on a
+    PREFIX of the window because the keys are sorted, so `counts[i]`
+    rows sliced off the front of row i are exactly that statement's
+    result, in pk order: bit-identical to the streaming path over the
+    same MVCC version.
+
+    The serving queue caches one of these per (table version, projection,
+    window, device) compatibility key, shared by every member statement
+    of the group."""
+
+    def __init__(self, pks, columns, valids, window: int,
+                 table: Optional[str] = None, device=None):
+        self.window = int(window)
+        self.n = len(pks)
+        self.names = tuple(columns)
+        self.table = table
+        self.nbytes = int(np.asarray(pks).nbytes
+                          + sum(columns[c].nbytes for c in columns)
+                          + sum(valids[c].nbytes for c in valids))
+        self._init_dispatch(device)
+        if self.n == 0:
+            self._batched = None
+            return
+        pks_np = np.asarray(pks, dtype=np.int64)
+        dev = self.device
+        self._keys = torch.from_numpy(pks_np).to(dev)
+        self._cols = torch.stack([torch.from_numpy(np.asarray(
+            columns[c], dtype=np.int64)) for c in self.names]).to(dev)
+        self._vals = torch.stack([torch.from_numpy(np.asarray(
+            valids[c], dtype=bool)) for c in self.names]).to(dev)
+        self._pk0 = _contiguous_base(pks_np)
+        self._lanes = torch.arange(self.window, device=dev)
+
+    def run(self, los, his, lims):
+        """ONE device dispatch for a batch of range micro-queries.
+        Returns (values (B, C, window), valid (B, C, window), counts
+        (B,)) as numpy arrays, the batch padded to its pow2 bucket and
+        sliced back."""
+        los = np.asarray(los, dtype=np.int64)
+        his = np.asarray(his, dtype=np.int64)
+        lims = np.asarray(lims, dtype=np.int64)
+        b = len(los)
+        c = len(self.names)
+        if self.n == 0 or b == 0:
+            return _empty_rows(b, c, self.window)
+        bucket = _pow2_at_least(b)
+        with self._run_mu:
+            self._note_bucket(bucket)
+            lo, hi, lim = self._to_device(np.stack(
+                _pad_lanes((los, his, lims), bucket)))
+            idx, cidx = _range_lanes(self._keys, lo, self.n, self._pk0,
+                                     self._lanes)
+            pk = self._keys[cidx]
+            ok = ((idx < self.n) & (pk >= lo[:, None]) & (pk < hi[:, None])
+                  & (self._lanes[None, :] < lim[:, None]))
+            host = self._readback(_pack_rows(
+                self._cols[:, cidx].transpose(0, 1),
+                self._vals[:, cidx].transpose(0, 1), ok.sum(1)))
+        return _unpack_rows(host, b, bucket, c, self.window)
+
+
+class ResidentServingRunner(_RowRunner):
+    """ServingScanRunner's device-resident sibling: instead of a
+    host-walk snapshot frozen at build time (torn down by the first
+    write), it reads the table's ResidentTable visibility image
+    (storage/resident.py) and REFRESHES it per dispatch — a write costs
+    one delta fold + visibility pass at the next batch, while the runner
+    and its serving-queue slot stay warm (their key is the attach
+    generation, stable across writes).
+
+    Row count `n` is the image's live prefix; the keys are its
+    sentinel-padded capacity, so the range search is a binary search.
+    Validity decodes from the row's NULL-bitmap slot (a static bit per
+    projected column), so the image needs no per-column validity planes.
+    The bucket record is keyed (batch bucket, image capacity), as the JAX
+    runner's executables are."""
+
+    def __init__(self, rt, names, slots, bits, mask_slot: int,
+                 window: int, table: Optional[str] = None):
+        self.rt = rt
+        self.window = int(window)
+        self.names = tuple(names)
+        self.table = table
+        self._slots = tuple(int(s) for s in slots)
+        self._bits = tuple(int(b) for b in bits)
+        self._mask_slot = int(mask_slot)
+        self._refresh_mu = threading.Lock()
+        self._img = None
+        self._keys = self._cols = self._mask = None
+        self.n = 0
+        self.nbytes = 0
+        self._init_dispatch(rt.device)
+        self._lanes = torch.arange(self.window, device=self.device)
+
+    def alive(self) -> bool:
+        return not self.rt._dead
+
+    def _refresh(self):
+        """Re-derive the projected device arrays when the resident image
+        moved (any write since the last dispatch). Raises
+        ResidentUnavailable when the table detached — the serving queue
+        then drops this runner and the next batch rebuilds host-side."""
+        img = self.rt.image_at(None)
+        with self._refresh_mu:
+            if img is not self._img:
+                self._keys = img.pk_dev
+                # slot -1 projects the pk lane itself (pk in the SELECT
+                # list), everything else a value slot
+                parts = [img.pk_dev if s < 0 else img.vals_dev[s]
+                         for s in self._slots]
+                self._cols = (torch.stack(parts) if parts
+                              else img.vals_dev[:0, :])
+                self._mask = img.vals_dev[self._mask_slot]
+                self.n = img.count
+                self.nbytes = int((len(self._slots) + 2) * 8 * img.cap)
+                self._img = img
+            return (self.n, self._keys, self._cols, self._mask)
+
+    def compile_bucket(self, batch: int) -> bool:
+        _n, keys, _c, _m = self._refresh()
+        self._note_bucket((_pow2_at_least(max(int(batch), 1)),
+                           int(keys.shape[0])))
+        return True
+
+    def run(self, los, his, lims):
+        """Same contract as ServingScanRunner.run — (values, valid,
+        counts) numpy arrays — over the CURRENT resident image."""
+        n, keys, cols, mask = self._refresh()
+        los = np.asarray(los, dtype=np.int64)
+        his = np.asarray(his, dtype=np.int64)
+        lims = np.asarray(lims, dtype=np.int64)
+        b = len(los)
+        c = len(self.names)
+        if b == 0:
+            return _empty_rows(b, c, self.window)
+        bucket = _pow2_at_least(b)
+        with self._run_mu:
+            self._note_bucket((bucket, int(keys.shape[0])))
+            lo, hi, lim = self._to_device(np.stack(
+                _pad_lanes((los, his, lims), bucket)))
+            idx, cidx = _range_lanes(keys, lo, n, None, self._lanes)
+            pk = keys[cidx]
+            ok = ((idx < n) & (pk >= lo[:, None]) & (pk < hi[:, None])
+                  & (self._lanes[None, :] < lim[:, None]))
+            m = mask[cidx]
+            valid = torch.stack(
+                [torch.ones_like(ok) if bit < 0 else ((m >> bit) & 1) == 0
+                 for bit in self._bits], dim=1)
+            host = self._readback(_pack_rows(
+                cols[:, cidx].transpose(0, 1), valid, ok.sum(1)))
+        return _unpack_rows(host, b, bucket, c, self.window)
+
+
+def _resident_info(catalog, table: str, cols) -> Optional[dict]:
+    """The catalog's resident build recipe for a serving runner, under
+    the port's narrower fallback rule (storage/mvcc.py
+    `MVCCStore.resident_columns`): None (the host snapshot) when the
+    table is not resident or cannot serve (ResidentUnavailable), when
+    device memory runs out, or when a transient fault outlasts the
+    retries; any other error propagates."""
+    from cockroach_tpu_torch.storage.resident import ResidentUnavailable
+
+    rs = getattr(catalog, "resident_serving", None)
+    if rs is None:
+        return None
+    try:
+        return rs(table, cols)
+    except ResidentUnavailable:
+        return None
+    except Exception as e:  # noqa: BLE001 — the classifier decides
+        if retry.classify(e) == retry.TERMINAL:
+            raise
+        stats.add("serving.resident_fallback")
+        return None
+
+
+def build_serving_runner(catalog, capacity: int, table: str, cols,
+                         window: int, device=None):
+    """Snapshot `table`'s pk + projected INT columns (with validity
+    lanes) out of the catalog's chunk stream into a ServingScanRunner on
+    `device`. The caller keys the runner by the table's MVCC-versioned
+    scan-cache key, so a stale image can never serve — any write rotates
+    the key and the next batch builds fresh (same contract as the
+    scan-image cache). Device-resident tables route to
+    ResidentServingRunner instead (on the resident table's device):
+    per-dispatch image refresh under a write-stable key."""
+    info = _resident_info(catalog, table, cols)
+    if info is not None:
+        return ResidentServingRunner(
+            info["rt"], tuple(cols), info["slots"], info["bits"],
+            info["mask_slot"], window, table=table)
+    pks, columns, valids = _snapshot_columns(catalog, capacity, table,
+                                             cols)
+    return ServingScanRunner(pks, columns, valids, window, table=table,
+                             device=device)
+
+
+def _snapshot_columns(catalog, capacity: int, table: str, cols):
+    """Host-snapshot `table`'s pk + `cols` (with validity lanes) out of
+    the catalog's chunk stream, pk-stable-sorted: the shared image build
+    behind every frozen-snapshot serving runner. INT columns come out
+    int64; VECTOR columns keep their decoded (rows, d) float32 shape —
+    both exactly the arrays the per-statement scan feeds downstream, so
+    batched kernels see bit-identical inputs."""
+    pk = catalog.table_pk(table)[0]
+    wanted = list(dict.fromkeys((pk,) + tuple(cols)))
+    parts = list(catalog.table_chunks(table, capacity, wanted)())
+
+    def _cast(arrs):
+        a = np.concatenate(arrs) if len(arrs) > 1 else np.asarray(
+            arrs[0])
+        if a.ndim == 2:  # VECTOR(d) decodes to (rows, d) float32
+            return np.asarray(a, np.float32)
+        return np.asarray(a, np.int64)
+
+    with stats.timed("serving.image_build"):
+        if parts:
+            pks = np.concatenate([np.asarray(p[pk], np.int64)
+                                  for p in parts])
+            columns = {}
+            valids = {}
+            for c in cols:
+                columns[c] = _cast([p[c] for p in parts])
+                if c + "__valid" in parts[0]:
+                    valids[c] = np.concatenate(
+                        [np.asarray(p[c + "__valid"], bool)
+                         for p in parts])
+                else:
+                    valids[c] = np.ones(len(columns[c]), bool)
+        else:
+            pks = np.zeros(0, np.int64)
+            columns = {c: np.zeros(0, np.int64) for c in cols}
+            valids = {c: np.zeros(0, bool) for c in cols}
+        if len(pks) > 1 and not np.all(pks[1:] >= pks[:-1]):
+            order = np.argsort(pks, kind="stable")
+            pks = pks[order]
+            columns = {c: v[order] for c, v in columns.items()}
+            valids = {c: v[order] for c, v in valids.items()}
+        return pks, columns, valids
+
+
+def _prefix_payload(names, vals, valid, count: int):
+    """One member's collect()-shaped payload out of its batch row: the
+    first `count` window rows of every projected column (the prefix
+    property, or post-sort row order for the top-K classes)."""
+    payload = {}
+    for ci, name in enumerate(names):
+        payload[name] = np.array(vals[ci, :count])
+        payload[name + "__valid"] = np.array(valid[ci, :count])
+    return payload
+
+
+class ServingAggRunner(_ServingDispatch):
+    """Batchable-aggregate runner: each row of the lane grid folds its
+    own [lo, hi) pk range through the scalar-aggregate formulas of
+    ops/agg.py's `_scalar_agg` — count(*)/count as int64 masked sums, sum
+    in the column dtype (int64, wrapping mod 2^64), avg as
+    float32(sum)/float32(max(count, 1)), min/max as identity-filled
+    reductions, each value paired with the same any-live validity.
+    Integer reductions are order-independent, so a row's fold is
+    bit-identical to the streaming path's chunked fold over the same
+    MVCC version.
+
+    Snapshot-frozen like ServingScanRunner: the serving queue keys these
+    runners by the table's MVCC-versioned scan-cache key, so any write
+    rotates the group and the next batch rebuilds."""
+
+    def __init__(self, pks, columns, valids, aggs, names, window: int,
+                 table: Optional[str] = None, device=None):
+        self.window = int(window)
+        self.n = len(pks)
+        self.aggs = tuple(aggs)      # ((func, col-or-None), ...)
+        self.names = tuple(names)    # output field name per agg
+        self.table = table
+        in_cols = tuple(dict.fromkeys(
+            c for _f, c in self.aggs if c is not None))
+        self._in_cols = in_cols
+        self.nbytes = int(np.asarray(pks).nbytes
+                          + sum(columns[c].nbytes for c in in_cols)
+                          + sum(valids[c].nbytes for c in in_cols))
+        self._init_dispatch(device)
+        if self.n == 0:
+            return
+        dev = self.device
+        pks_np = np.asarray(pks, dtype=np.int64)
+        self._keys = torch.from_numpy(pks_np).to(dev)
+        if in_cols:
+            self._cols = torch.stack([torch.from_numpy(np.asarray(
+                columns[c], np.int64)) for c in in_cols]).to(dev)
+            self._vals = torch.stack([torch.from_numpy(np.asarray(
+                valids[c], bool)) for c in in_cols]).to(dev)
+        else:  # pure count(*)
+            self._cols = torch.zeros((1, self.n), dtype=torch.int64,
+                                     device=dev)
+            self._vals = torch.ones((1, self.n), dtype=torch.bool,
+                                    device=dev)
+        cidx_of = {c: i for i, c in enumerate(in_cols)}
+        self._plan = tuple((f, None if c is None else cidx_of[c])
+                           for f, c in self.aggs)
+        self._pk0 = _contiguous_base(pks_np)
+        self._lanes = torch.arange(self.window, device=dev)
+
+    def _empty_lane(self):
+        """The formulas over an all-dead selection, host-side (an empty
+        table dispatches nothing)."""
+        out = []
+        for func, _ci in self.aggs:
+            if func in ("count_star", "count"):
+                out.append((np.int64(0), True))
+            elif func == "sum":
+                out.append((np.int64(0), False))
+            elif func == "avg":
+                out.append((np.float32(0.0), False))
+            elif func == "min":
+                out.append((np.int64(np.iinfo(np.int64).max), False))
+            else:  # max
+                out.append((np.int64(np.iinfo(np.int64).min), False))
+        return out
+
+    def _fold(self, lo, hi):
+        """(per-agg (B,) int64 values — avg as its float32 bits —, per-agg
+        (B,) validity) of the batch's ranges."""
+        idx, cidx = _range_lanes(self._keys, lo, self.n, self._pk0,
+                                 self._lanes)
+        pk = self._keys[cidx]
+        sel = (idx < self.n) & (pk >= lo[:, None]) & (pk < hi[:, None])
+        from cockroach_tpu_torch.ops.agg import _identity
+
+        outs, oks = [], []
+        true = torch.ones(sel.shape[0], dtype=torch.bool, device=sel.device)
+        for func, ci in self._plan:
+            if func == "count_star":
+                outs.append(sel.sum(1, dtype=torch.int64))
+                oks.append(true)
+                continue
+            v = self._cols[ci, cidx]
+            live = sel & self._vals[ci, cidx]
+            any_live = live.any(1)
+            if func == "count":
+                outs.append(live.sum(1, dtype=torch.int64))
+                oks.append(true)
+            elif func in ("sum", "avg"):
+                s = torch.where(live, v, torch.zeros((), dtype=v.dtype,
+                                                     device=v.device)).sum(1)
+                if func == "sum":
+                    outs.append(s)
+                else:
+                    cnt = live.sum(1, dtype=torch.int64).clamp_min(1)
+                    avg = s.to(torch.float32) / cnt.to(torch.float32)
+                    outs.append(avg.view(torch.int32).to(torch.int64))
+                oks.append(any_live)
+            else:  # min / max
+                filled = torch.where(live, v, torch.full(
+                    (), _identity(func, v.dtype), dtype=v.dtype,
+                    device=v.device))
+                outs.append(filled.amin(1) if func == "min"
+                            else filled.amax(1))
+                oks.append(any_live)
+        return outs, oks
+
+    def run(self, los, his):
+        """(per-agg values, per-agg valids) — each a length-len(aggs)
+        list of (B,) numpy arrays."""
+        los = np.asarray(los, dtype=np.int64)
+        his = np.asarray(his, dtype=np.int64)
+        b = len(los)
+        if self.n == 0 or b == 0:
+            empty = self._empty_lane()
+            return ([np.full(b, v, dtype=np.asarray(v).dtype)
+                     for v, _ in empty],
+                    [np.full(b, ok, dtype=bool) for _, ok in empty])
+        bucket = _pow2_at_least(b)
+        a = len(self.aggs)
+        with self._run_mu:
+            self._note_bucket(bucket)
+            lo, hi = self._to_device(np.stack(_pad_lanes((los, his),
+                                                         bucket)))
+            outs, oks = self._fold(lo, hi)
+            host = self._readback(torch.cat(
+                [torch.stack(outs).reshape(-1),
+                 torch.stack(oks).reshape(-1).to(torch.int64)]))
+        vals = host[:a * bucket].reshape(a, bucket)[:, :b]
+        valid = host[a * bucket:].reshape(a, bucket)[:, :b].astype(bool)
+        out = []
+        for j, (func, _c) in enumerate(self.aggs):
+            out.append(vals[j].astype(np.int32).view(np.float32)
+                       if func == "avg" else vals[j].copy())
+        return out, [valid[j].copy() for j in range(a)]
+
+    def serve(self, specs):
+        los = np.asarray([s.lo for s in specs], np.int64)
+        his = np.asarray([s.hi for s in specs], np.int64)
+        outs, oks = self.run(los, his)
+        payloads = []
+        for i in range(len(specs)):
+            p = {}
+            for j, name in enumerate(self.names):
+                p[name] = np.array([outs[j][i]])
+                p[name + "__valid"] = np.array([oks[j][i]])
+            payloads.append(p)
+        return payloads
+
+    def prewarm_batch(self, batch: int) -> None:
+        z = np.zeros(batch, dtype=np.int64)
+        self.run(z, z)
+
+
+class ServingTopKRunner(_RowRunner):
+    """LIMIT + ORDER BY non-pk runner: each row of the lane grid gathers
+    its pow2 window of pk-range rows, then sorts them with exactly
+    ops/sort.py's lexicographic key construction — value key
+    (bitwise-NOT for DESC), NULLs via a leading validity rank (NULLS
+    FIRST for ASC, LAST for DESC — the SQL/CRDB default), out-of-range
+    lanes forced last — and a stable tie-break (one stable argsort per
+    key along dim 1), which preserves window-lane order = pk order, the
+    same total order the streaming TopKOp produces over the same rows.
+    The first min(matched, k) sorted rows of a lane are therefore
+    bit-identical to the per-statement result."""
+
+    def __init__(self, pks, columns, valids, order_vals, order_valid,
+                 descending: bool, window: int,
+                 table: Optional[str] = None, device=None):
+        self.window = int(window)
+        self.n = len(pks)
+        self.names = tuple(columns)
+        self.descending = bool(descending)
+        self.table = table
+        self.nbytes = int(np.asarray(pks).nbytes
+                          + sum(columns[c].nbytes for c in columns)
+                          + sum(valids[c].nbytes for c in valids)
+                          + np.asarray(order_vals).nbytes)
+        self._init_dispatch(device)
+        if self.n == 0:
+            return
+        dev = self.device
+        pks_np = np.asarray(pks, dtype=np.int64)
+        self._keys = torch.from_numpy(pks_np).to(dev)
+        self._cols = torch.stack([torch.from_numpy(np.asarray(
+            columns[c], np.int64)) for c in self.names]).to(dev)
+        self._vals = torch.stack([torch.from_numpy(np.asarray(
+            valids[c], bool)) for c in self.names]).to(dev)
+        self._ovals = torch.from_numpy(np.asarray(order_vals,
+                                                  np.int64)).to(dev)
+        self._ovalid = torch.from_numpy(np.asarray(order_valid,
+                                                   bool)).to(dev)
+        self._pk0 = _contiguous_base(pks_np)
+        self._lanes = torch.arange(self.window, device=dev)
+
+    def run(self, los, his, lims):
+        from cockroach_tpu_torch.ops.sort import _sortable_int
+
+        los = np.asarray(los, dtype=np.int64)
+        his = np.asarray(his, dtype=np.int64)
+        lims = np.asarray(lims, dtype=np.int64)
+        b = len(los)
+        c = len(self.names)
+        if self.n == 0 or b == 0:
+            return _empty_rows(b, c, self.window)
+        bucket = _pow2_at_least(b)
+        with self._run_mu:
+            self._note_bucket(bucket)
+            lo, hi, lim = self._to_device(np.stack(
+                _pad_lanes((los, his, lims), bucket)))
+            idx, cidx = _range_lanes(self._keys, lo, self.n, self._pk0,
+                                     self._lanes)
+            pk = self._keys[cidx]
+            ok = (idx < self.n) & (pk >= lo[:, None]) & (pk < hi[:, None])
+            kv = _sortable_int(self._ovals[cidx])
+            if self.descending:
+                kv = ~kv
+            va = self._ovalid[cidx].to(torch.int64)
+            # ops/sort.py SortKey default: NULLS FIRST ascending
+            null_rank = va if not self.descending else 1 - va
+            dead = (~ok).to(torch.int64)
+            # least significant first: the value key, the null rank, the
+            # dead lanes last; stable ties keep window-lane (pk) order
+            perm = _lexsort_rows((kv, null_rank, dead))
+            sidx = cidx.gather(1, perm)
+            count = torch.minimum(ok.sum(1), lim)
+            host = self._readback(_pack_rows(
+                self._cols[:, sidx].transpose(0, 1),
+                self._vals[:, sidx].transpose(0, 1), count))
+        return _unpack_rows(host, b, bucket, c, self.window)
+
+
+
+# fewest rows a vector runner ranks in one distance call: the CUDA
+# reduction over d picks its block shape from the number of outputs up to
+# 16, and at 16 or more it is the shape the per-statement distance over a
+# chunk uses, so each row's float32 sum adds its lanes in the same order
+_VEC_MIN_ROWS = 16
+
+
+class ServingVectorRunner(_ServingDispatch):
+    """Batched vector top-K: concurrent `ORDER BY vcol <-> $q LIMIT k`
+    statements on the same (table, metric, k) coalesce into ONE
+    multi-query distance + top-K dispatch — ops/vector.py's
+    ExactSearcher shape reached from the serving queue. Each query ranks
+    ALL table rows by the same float32 distance function the
+    per-statement VecDistance lowering uses (ops/vector.py `l2_distance`,
+    `cosine_distance`: a sum over each row's d contiguous lanes, which no
+    batch size reorders; queries run in ExactSearcher's chunks of whole
+    queries), with the exact-path ordering contract: ascending distance,
+    NULL embeddings last (SortKey nulls_first=False) ordered among
+    themselves by their decoded raw-slot distance, stable ties in pk
+    order. k is static (part of the compatibility key); the query vector
+    rides the batch as data."""
+
+    def __init__(self, pks, columns, valids, vecs, vec_valid,
+                 metric: str, k: int, table: Optional[str] = None,
+                 device=None):
+        from cockroach_tpu_torch.ops.vector import distance_fn
+
+        self.k = int(k)
+        self.window = self.k  # uniform runner attr (lane output rows)
+        self.n = len(pks)
+        self.names = tuple(columns)
+        self.metric = metric
+        self.table = table
+        vecs = np.asarray(vecs, np.float32)
+        self.dim = int(vecs.shape[1]) if vecs.ndim == 2 else 0
+        self.nbytes = int(np.asarray(pks).nbytes + vecs.nbytes
+                          + sum(columns[c].nbytes for c in columns))
+        self._init_dispatch(device)
+        if self.n == 0:
+            return
+        dev = self.device
+        self._cols = torch.stack([torch.from_numpy(np.asarray(
+            columns[c], np.int64)) for c in self.names]).to(dev)
+        self._vals = torch.stack([torch.from_numpy(np.asarray(
+            valids[c], bool)) for c in self.names]).to(dev)
+        rows = max(self.n, _VEC_MIN_ROWS)
+        padded = np.zeros((rows, self.dim), np.float32)
+        padded[:self.n] = vecs
+        self._vecs = torch.from_numpy(padded).to(dev)
+        self._null_rank = torch.from_numpy(
+            (~np.asarray(vec_valid, bool)).astype(np.int64)).to(dev)
+        self._dist = distance_fn(metric)
+
+    def _rank(self, q: torch.Tensor) -> torch.Tensor:
+        """(m, d) queries -> (m, k) row positions in rank order."""
+        from cockroach_tpu_torch.ops.sort import _sortable_int
+        from cockroach_tpu_torch.ops.vector import _chunk_queries
+
+        out = []
+        step = _chunk_queries(self._vecs.shape[0], max(self.dim, 1))
+        for a in range(0, len(q), step):
+            d = self._dist(self._vecs[None, :, :],
+                           q[a:a + step, None, :])[:, :self.n]
+            kv = _sortable_int(d)
+            null_rank = self._null_rank[None, :].expand_as(kv)
+            perm = _lexsort_rows((kv, null_rank))
+            if self.n >= self.k:
+                out.append(perm[:, :self.k])
+            else:
+                out.append(torch.cat([perm, torch.zeros(
+                    (perm.shape[0], self.k - self.n), dtype=perm.dtype,
+                    device=perm.device)], dim=1))
+        return torch.cat(out)
+
+    def run(self, qs):
+        """(m, d) query batch -> (values (m, C, k), valid, counts)."""
+        qs = np.asarray(qs, dtype=np.float32)
+        b = len(qs)
+        c = len(self.names)
+        if self.n == 0 or b == 0:
+            return _empty_rows(b, c, self.k)
+        bucket = _pow2_at_least(b)
+        if bucket > b:
+            qs = np.concatenate(
+                [qs, np.zeros((bucket - b, self.dim), np.float32)])
+        with self._run_mu:
+            self._note_bucket(bucket)
+            sidx = self._rank(self._to_device(qs))
+            counts = torch.full((bucket,), min(self.n, self.k),
+                                dtype=torch.int64, device=self.device)
+            host = self._readback(_pack_rows(
+                self._cols[:, sidx].transpose(0, 1),
+                self._vals[:, sidx].transpose(0, 1), counts))
+        return _unpack_rows(host, b, bucket, c, self.k)
+
+    def serve(self, specs):
+        qs = np.stack([np.asarray(s.qvec, np.float32) for s in specs])
+        vals, valid, counts = self.run(qs)
+        return [_prefix_payload(self.names, vals[i], valid[i],
+                                int(counts[i]))
+                for i in range(len(specs))]
+
+    def prewarm_batch(self, batch: int) -> None:
+        self.run(np.zeros((batch, max(self.dim, 1)), np.float32))
+
+
+def build_serving_batch_runner(catalog, capacity: int, spec, device=None):
+    """Runner for one serving BatchSpec (sql/serving.py) on `device`,
+    dispatched on its compatibility class. The scan class keeps its
+    resident-table fast path (build_serving_runner); the other classes
+    snapshot host-side under the table's MVCC-versioned key —
+    device-resident tables still accelerate the snapshot itself, because
+    table_chunks reads through the resident visibility pass."""
+    kind = getattr(spec, "kind", "scan")
+    if kind == "scan":
+        return build_serving_runner(catalog, capacity, spec.table,
+                                    spec.cols, spec.window, device=device)
+    if kind == "agg":
+        need = tuple(dict.fromkeys(
+            c for _f, c in spec.aggs if c is not None))
+        pks, columns, valids = _snapshot_columns(catalog, capacity,
+                                                 spec.table, need)
+        return ServingAggRunner(pks, columns, valids, spec.aggs,
+                                spec.names, spec.window,
+                                table=spec.table, device=device)
+    if kind == "topk":
+        need = tuple(dict.fromkeys(spec.cols + (spec.order_col,)))
+        pks, columns, valids = _snapshot_columns(catalog, capacity,
+                                                 spec.table, need)
+        return ServingTopKRunner(
+            pks, {c: columns[c] for c in spec.cols},
+            {c: valids[c] for c in spec.cols},
+            columns[spec.order_col], valids[spec.order_col],
+            spec.descending, spec.window, table=spec.table, device=device)
+    if kind == "vector":
+        need = tuple(dict.fromkeys(spec.cols + (spec.vcol,)))
+        pks, columns, valids = _snapshot_columns(catalog, capacity,
+                                                 spec.table, need)
+        return ServingVectorRunner(
+            pks, {c: columns[c] for c in spec.cols},
+            {c: valids[c] for c in spec.cols},
+            columns[spec.vcol], valids[spec.vcol], spec.metric,
+            spec.limit, table=spec.table, device=device)
+    raise ValueError(f"unknown serving batch class {kind!r}")

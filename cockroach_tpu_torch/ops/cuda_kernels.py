@@ -10,7 +10,9 @@ A wrapper dispatches on the device of the tensors it is given: a CUDA
 tensor goes to the kernel (or the call raises), a CPU tensor goes to the
 plain version beside it. There is no fallback from one to the other.
 Each kernel counts its launches, so a run can show that its path went
-through the kernel.
+through the kernel. A thread that captures a CUDA graph counts the
+launches its capture records apart (`record_launches`), so a launch that
+another thread makes meanwhile stays in the kernel's own count.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import List, Optional, Sequence
 
@@ -45,6 +48,18 @@ def _nvcc() -> str:
                        "toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
+# launches recorded by a stream capture on this thread (record_launches)
+_RECORD = threading.local()
+_COUNT_MU = threading.Lock()
+
+
+def record_launches(into: Optional[dict]) -> None:
+    """Count this thread's launches into `into` (kernel source stem ->
+    launches) instead of each kernel's own count, until the next call
+    (None stops): a capture records launches that only its replays make."""
+    _RECORD.into = into
+
+
 class CudaKernel:
     """One kernel: its source, its shared library, its C entry point, its
     launch count (`launches`, raised by the wrapper on each launch) and
@@ -59,6 +74,16 @@ class CudaKernel:
         self.build_log = ""
         self._lib = None
         self._fn = None
+
+    def count_launch(self, n: int = 1) -> None:
+        """Add `n` launches: to this thread's capture record while it
+        records (record_launches), else to `launches`."""
+        into = getattr(_RECORD, "into", None)
+        if into is not None:
+            into[self.source.stem] = into.get(self.source.stem, 0) + n
+            return
+        with _COUNT_MU:
+            self.launches += n
 
     def library(self) -> Path:
         h = hashlib.sha256(self.source.read_bytes())
@@ -242,7 +267,7 @@ def dense_sums(packed: torch.Tensor,
                          packed.device.index or 0, ctypes.byref(route))
     if rc != 0:
         raise RuntimeError(f"dense_sums kernel launch failed: CUDA error {rc}")
-    DENSE_SUMS.launches += 1
+    DENSE_SUMS.count_launch()
     DENSE_SUMS.route = tuple(name for bit, name in _ROUTE_BITS
                              if route.value & bit)
     return out

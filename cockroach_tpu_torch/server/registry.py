@@ -33,10 +33,11 @@ ids through every call signature; warm serving-path statements skip the
 stack — their phase is final at registration.
 
 Counterpart of cockroach_tpu/server/registry.py, a copy (stdlib only).
-sql/session.py `Session.execute` registers every statement (there is no
-serving path yet, ROADMAP.md queue 1, item 8d, so every statement is
-tracked); CANCEL QUERY reaches the local registry only: routing a
-cancel to another node's registry (`route_cancel`) waits for item 8e.
+sql/session.py `Session.execute` registers every statement (a warm
+serving-path statement in `serving-batched`, untracked) and
+`execute_spec` registers the bound statements pgwire serves; CANCEL
+QUERY reaches the local registry only: routing a cancel to another
+node's registry (`route_cancel`) waits for item 8e.
 """
 
 from __future__ import annotations

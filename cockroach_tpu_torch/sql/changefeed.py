@@ -30,8 +30,8 @@ the JAX source can close its window over versions a concurrent commit
 has not written yet and never emit them.
 
 `stream_rows` backs `EXPERIMENTAL CHANGEFEED FOR t` (the session's
-"stream" result kind, a generator of envelope lines); its pgwire
-rendering waits for sql/pgwire.py, ROADMAP.md queue 1, item 8d.
+"stream" result kind, a generator of envelope lines); sql/pgwire.py
+renders it as one flushed DataRow per envelope.
 
 Reference: ccl/changefeedccl (changeAggregator/changeFrontier, JSON
 encoders, sinks, resolved-ts checkpoints into the job record).

@@ -18,8 +18,9 @@ up, which is exactly the "anomalous vs own history" contract.
 Counterpart of cockroach_tpu/sql/insights.py, a copy. One departure: a
 slow or degraded execution does not flag its fingerprint's placement
 dirty, since the port's placement pass keeps no per-fingerprint cache
-(sql/plan_compile.py has no `mark_degraded`); the `batch_fallback` kind
-has no caller until the serving queue (ROADMAP.md queue 1, item 8d).
+(sql/plan_compile.py has no `mark_degraded`). `batch_fallback` comes
+from sql/session.py `execute_spec`, when the serving queue declines a
+bound statement.
 """
 
 from __future__ import annotations

@@ -72,15 +72,23 @@ catalog's jobs registry, EXPERIMENTAL CHANGEFEED as a "stream" of
 envelope lines) and PAUSE/RESUME/CANCEL JOB are host work, as in the
 JAX session.
 
+The serving seams (sql/serving.py): a prepared SELECT in one of the
+serving queue's batch classes carries a BatchSpec; its warm hit skips
+per-statement admission, registers in the `serving-batched` phase and
+is served by a batched dispatch shared with other sessions
+(`maybe_submit`), on the session's device; a batch that declines runs
+the statement serially. `execute_spec` is pgwire's EXECUTE fast path (a
+bound statement matched at Bind). `serving_image_key` and
+`resident_serving` key and build the scan class's runner over a
+device-resident table, whose key survives writes; a prepared entry whose
+plan went stale over such a table comes back serving-only
+(`_serving_still_warm`).
+
 Not ported yet (each raises a BindError naming its ROADMAP.md queue 1
 item, or the JAX package's message):
-  - 8d's `execute_spec` (the serving queue's EXECUTE fast path), and
-    with it the registry's `serving-batched` phase;
   - 8e's `route_cancel`: CANCEL QUERY of an id another node owns;
-  - 8d, serving: `serving_image_key`, `resident_serving`, the serving
-    queue's batch specs and `_serving_still_warm`; the pgwire
-    rendering of EXPERIMENTAL CHANGEFEED's stream;
-  - 8e, the plan vault (`_invalidate_vault`) and the pre-warm job.
+  - 8e, the plan vault (`_invalidate_vault`) and the pre-warm job
+    (`_prepared_store`'s compile-at-prepare note).
 """
 
 from __future__ import annotations
@@ -517,6 +525,65 @@ class SessionCatalog(Catalog):
         return prefix + ("sess", self.store.table_version(desc.table_id),
                          int(capacity), cols)
 
+    def serving_image_key(self, name: str,
+                          capacity: int) -> Optional[tuple]:
+        """The ServingQueue's runner/compatibility key for one table.
+        When the table is device-resident this is STABLE ACROSS WRITES —
+        (attach generation, capacity) only — because the resident
+        serving runner refreshes its image from the delta fold at every
+        dispatch; a write therefore does not tear down the warm runner
+        and its image. Falls back to the MVCC-versioned scan_cache_key
+        (rotate-on-write) when not resident."""
+        desc = self.desc(name)
+        from cockroach_tpu_torch.storage import resident as _resident
+
+        rt = _resident.maybe_attach(self.store, desc.table_id,
+                                    desc.value_slots() + 1)
+        if rt is not None:
+            return self.store.scan_cache_prefix(desc.table_id) + (
+                "sess", "resident-serving", rt.generation,
+                int(capacity))
+        return self.scan_cache_key(name, None, capacity)
+
+    def resident_serving(self, name: str, cols) -> Optional[dict]:
+        """The resident-tier build recipe for a ServingQueue runner over
+        `cols` (INT single-slot projections, per match_batchable): the
+        attached ResidentTable plus each column's value-slot index and
+        NULL-bitmap bit (-1 = NOT NULL), and the bitmap's slot. None
+        when the table is not resident or a column can't ride the
+        resident image directly."""
+        try:
+            desc = self.desc(name)
+        except BindError:  # dropped since keyed
+            return None
+        from cockroach_tpu_torch.storage import resident as _resident
+
+        rt = _resident.maybe_attach(self.store, desc.table_id,
+                                    desc.value_slots() + 1)
+        if rt is None:
+            return None
+        slot_of: Dict[str, int] = {}
+        bit_of: Dict[str, int] = {}
+        off = 0
+        for i, (n, t) in enumerate(desc.value_columns()):
+            width = _slots_of(t)
+            if width == 1:
+                slot_of[n] = off
+                bit_of[n] = i if desc.nullable(n) else -1
+            off += width
+        slots, bits = [], []
+        for c in cols:
+            if c == desc.pk:
+                slots.append(-1)  # -1 = the image's pk lane itself
+                bits.append(-1)
+                continue
+            if c not in slot_of:
+                return None
+            slots.append(slot_of[c])
+            bits.append(bit_of[c])
+        return {"rt": rt, "slots": tuple(slots), "bits": tuple(bits),
+                "mask_slot": desc.value_slots()}
+
     def table_rows(self, name: str) -> int:
         return max(self.desc(name).row_count, 1)
 
@@ -656,18 +723,21 @@ class _TxnReadCatalog(Catalog):
 class _Prepared:
     """A cached SELECT: the built operator tree, its output schema, the
     per-table scan-cache keys the plan was built against (the validity
-    check) and the capacity those keys were computed at (the shared
-    cache serves sessions of any capacity; the plan's own chunking is
-    what the keys describe)."""
+    check), the capacity those keys were computed at (the shared cache
+    serves sessions of any capacity; the plan's own chunking is what the
+    keys describe), and the serving queue's BatchSpec when the statement
+    is batchable (sql/serving.py; None otherwise). A serving-only entry
+    has no tree (`op` None)."""
 
-    __slots__ = ("op", "schema", "vkeys", "capacity")
+    __slots__ = ("op", "schema", "vkeys", "capacity", "bspec")
 
     def __init__(self, op, schema, vkeys: Dict[str, tuple],
-                 capacity: int):
+                 capacity: int, bspec=None):
         self.op = op
         self.schema = schema
         self.vkeys = vkeys
         self.capacity = capacity
+        self.bspec = bspec
 
 
 # statements that change plans wholesale (the version check cannot see
@@ -807,11 +877,22 @@ class Session:
         head = sql.strip().split(None, 1)[0].lower() if sql.strip() else ""
         t0 = time.perf_counter()
         timeout = self._statement_timeout()
+        # a statement headed for the serving queue skips per-statement
+        # admission — the batch LEADER acquires one slot for the whole
+        # coalesced batch (sql/serving.py), so the coalescing depth is
+        # not capped at the slot count. The probe (a dict get, no side
+        # effects) runs first so the statement registers directly in
+        # its final phase.
+        from cockroach_tpu_torch.sql import serving as _serving
+
+        serving_path = head == "select" and _serving.probe(self, sql)
         qreg = self._qreg
         # the registry entry doubles as the statement's CancelContext
         ctx = qentry = qreg.register(
             self, sql, timeout if timeout > 0 else None,
-            phase=_registry.PHASE_QUEUED, track=True, start_pc=t0)
+            phase=(_registry.PHASE_SERVING if serving_path
+                   else _registry.PHASE_QUEUED),
+            track=not serving_path, start_pc=t0)
         qid = qentry.query_id
         with self._cancel_mu:
             self._active_cancel = ctx
@@ -820,8 +901,9 @@ class Session:
             with tracing.query_span("session.execute", sql=sql[:60]), \
                     _cancel.active(ctx), _stats.query_stats() as qcol:
                 try:
-                    queue = self._admit(head)
-                    qentry.phase = _registry.PHASE_EXECUTING
+                    if not serving_path:
+                        queue = self._admit(head)
+                        qentry.phase = _registry.PHASE_EXECUTING
                     kind, payload, schema = self._execute(sql)
                 except Exception as e:
                     elapsed = time.perf_counter() - t0
@@ -866,9 +948,92 @@ class Session:
                                       _stats.degradations_seen(qcol))
             return kind, payload, schema
         finally:
-            qreg.deregister(self, qentry, True)
+            qreg.deregister(self, qentry, not serving_path)
             if queue is not None:
                 queue.release()
+            with self._cancel_mu:
+                self._active_cancel = None
+
+    def execute_spec(self, spec, sql: str):
+        """The EXECUTE fast path (pgwire Bind matched the bound text to
+        a batch class): serve the statement straight through the
+        ServingQueue with the same lifecycle seams as execute() —
+        cancel context + statement_timeout, sqlstats, slow-query log,
+        error mapping — but no parse, no plan, and no per-statement
+        admission (the batch leader admits for the whole batch).
+        Returns (kind, payload, schema), or None when the statement
+        should run the normal path instead (batch declined/fell back,
+        open transaction, serving disabled)."""
+        from cockroach_tpu_torch.server import registry as _registry
+        from cockroach_tpu_torch.sql import serving as _serving
+        from cockroach_tpu_torch.sql.insights import default_insights
+        from cockroach_tpu_torch.sql.sqlstats import default_sqlstats
+        from cockroach_tpu_torch.util import cancel as _cancel
+        from cockroach_tpu_torch.util import tracing
+
+        if (not _serving.enabled() or self._txn is not None
+                or self._txn_aborted):
+            return None
+        t0 = time.perf_counter()
+        timeout = self._statement_timeout()
+        qreg = self._qreg
+        # the registry entry doubles as the statement's CancelContext
+        ctx = qentry = qreg.register(self, sql,
+                                     timeout if timeout > 0 else None,
+                                     phase=_registry.PHASE_SERVING,
+                                     start_pc=t0)
+        qid = qentry.query_id
+        with self._cancel_mu:
+            self._active_cancel = ctx
+        try:
+            with tracing.query_span("session.execute_spec",
+                                    sql=sql[:60]), \
+                    _cancel.active(ctx):
+                try:
+                    vkey = _serving._class_vkey(self.catalog,
+                                                self.capacity, spec)
+                    if vkey is None:
+                        return None
+                    payload = _serving.serving_queue().submit(
+                        self, spec, vkey, via="execute")
+                except Exception as e:
+                    elapsed = time.perf_counter() - t0
+                    default_sqlstats().record(
+                        sql, elapsed, error=True,
+                        session_id=self.session_id)
+                    self._maybe_log_slow(sql, elapsed, error=True)
+                    default_insights().observe(
+                        sql, elapsed, session_id=self.session_id,
+                        query_id=qid,
+                        shed=(isinstance(e, SQLError)
+                              and e.pgcode == "53300"),
+                        error=True)
+                    mapped = map_execution_error(e)
+                    if mapped is not None:
+                        try:
+                            raise mapped from e
+                        finally:
+                            del mapped
+                    raise
+                if payload is None:
+                    # the batch declined or fell apart mid-flight: the
+                    # caller re-runs the statement serially — an insight
+                    # the operator should see when it becomes a pattern
+                    default_insights().observe(
+                        sql, time.perf_counter() - t0,
+                        session_id=self.session_id, query_id=qid,
+                        batch_fallback=True, error=True)
+                    return None
+                first = next(iter(payload.values()), None)
+                rows = len(first) if first is not None else 0
+                elapsed = time.perf_counter() - t0
+                default_sqlstats().record(sql, elapsed, rows=rows,
+                                          session_id=self.session_id)
+                self._maybe_log_slow(sql, elapsed, rows=rows)
+                self._observe_insight(sql, elapsed, qid, False)
+                return "rows", payload, _serving.spec_schema(spec)
+        finally:
+            qreg.deregister(self, qentry)
             with self._cancel_mu:
                 self._active_cancel = None
 
@@ -955,6 +1120,20 @@ class Session:
             except Exception:  # noqa: BLE001 — e.g. table dropped
                 cur = None
             if cur != vkey:
+                if (prep.bspec is not None and cur is not None
+                        and len(prep.vkeys) == 1
+                        and tname == prep.bspec.table
+                        and self._serving_still_warm(tname,
+                                                     prep.capacity)):
+                    # the plan's stacked image is stale, but the
+                    # statement is batchable over a device-resident
+                    # table whose serving image refreshes per dispatch:
+                    # hand back a serving-only entry (op=None) so the
+                    # warm path still skips the parse — _execute falls
+                    # through to the cold path only if the serving
+                    # submit itself declines
+                    return _Prepared(None, prep.schema, prep.vkeys,
+                                     prep.capacity, prep.bspec)
                 with self._prepared_mu:
                     self._prepared.pop(sql, None)
                 return None
@@ -963,11 +1142,26 @@ class Session:
                 self._prepared.move_to_end(sql)
         return prep
 
-    def _prepared_store(self, sql: str, sunk) -> None:
+    def _serving_still_warm(self, tname: str, capacity: int) -> bool:
+        """Is `tname` device-resident, i.e. does its serving image
+        survive writes? (The stable-across-writes serving_image_key
+        tags resident tables "resident-serving".)"""
+        sik = getattr(self.catalog, "serving_image_key", None)
+        if sik is None:
+            return False
+        try:
+            k = sik(tname, capacity)
+        except Exception:  # noqa: BLE001
+            return False
+        return k is not None and "resident-serving" in k
+
+    def _prepared_store(self, sql: str, sunk, ast=None) -> None:
         """Cache the built operator tree when it is safely re-runnable:
         every scan carries a cache key (an IndexScan's does not), and
         every scanned table vouches for its content with a scan-cache
-        key."""
+        key. Statements in the serving queue's batchable class
+        additionally carry a BatchSpec, the ticket into cross-session
+        coalescing."""
         from cockroach_tpu_torch.exec.operators import ScanOp, walk_operators
         from cockroach_tpu_torch.sql.plan import Scan as _Scan, _walk_plan
 
@@ -987,9 +1181,18 @@ class Session:
             if k is None:
                 return
             vkeys[t] = k
+        bspec = None
+        if ast is not None:
+            from cockroach_tpu_torch.sql import serving as _serving
+
+            try:
+                bspec = _serving.match_batchable(ast, self.catalog,
+                                                 self.capacity)
+            except Exception:  # noqa: BLE001 — matcher must never
+                bspec = None   # block the prepared path
         with self._prepared_mu:
             self._prepared[sql] = _Prepared(op, op.schema, vkeys,
-                                            self.capacity)
+                                            self.capacity, bspec)
             self._prepared.move_to_end(sql)
             while len(self._prepared) > self.PREPARED_CACHE_ENTRIES:
                 self._prepared.popitem(last=False)
@@ -1005,9 +1208,19 @@ class Session:
                 from cockroach_tpu_torch.exec import collect, stats
 
                 stats.add("sql.prepared_hit")
-                return "rows", collect(prep.op, device=self.device,
-                                       backend=self.vars["vectorize"]
-                                       ), prep.schema
+                if prep.bspec is not None:
+                    from cockroach_tpu_torch.sql import serving as _serving
+
+                    payload = _serving.maybe_submit(self, prep, sql=sql)
+                    if payload is not None:
+                        return "rows", payload, prep.schema
+                if prep.op is not None:
+                    return "rows", collect(prep.op, device=self.device,
+                                           backend=self.vars["vectorize"]
+                                           ), prep.schema
+                # serving-only entry (stale plan over a resident table)
+                # whose batch submit declined: fall through to the cold
+                # parse path, which also re-stores a full entry
         ast = P.parse(sql)
         if isinstance(ast, _PLAN_CHANGING):
             # schema, settings or stats changes can change plans
@@ -1104,7 +1317,7 @@ class Session:
             out = execute_with_plan(sql, catalog, self.capacity,
                                     op_sink=sink, **kw)
             if sink:
-                self._prepared_store(sql, sink[0])
+                self._prepared_store(sql, sink[0], ast)
             return out
         return execute_with_plan(sql, catalog, self.capacity, **kw)
 

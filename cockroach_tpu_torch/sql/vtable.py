@@ -31,7 +31,8 @@ Departures, each waiting for its ROADMAP.md queue 1 item:
     query registry's;
   - `ranges` returns no rows, as the JAX provider does with no cluster
     (the kv cluster is not ported);
-  - `serving_batches` raises a BindError naming 8d (the serving queue);
+  - `serving_batches` reads the serving queue's per-class snapshot
+    (sql/serving.py), as the JAX provider does;
   - `jobs` lists the catalog's jobs registry, then one row for each
     materialized view (kind "matview:<name>", its folds and re-scans).
 A virtual table's `scan_cache_key` is None, so its scan is never
@@ -48,7 +49,6 @@ import numpy as np
 from cockroach_tpu_torch.coldata.batch import (
     FLOAT, Field, INT, Kind, STRING, Schema,
 )
-from cockroach_tpu_torch.sql.bind import BindError
 from cockroach_tpu_torch.sql.plan import Catalog
 
 PREFIX = "crdb_internal."
@@ -168,8 +168,25 @@ def _rows_jobs(base=None) -> List[dict]:
 
 
 def _rows_serving_batches(base=None) -> List[dict]:
-    raise BindError("crdb_internal.serving_batches is not ported yet "
-                    "(ROADMAP.md queue 1, item 8d: the serving queue)")
+    from cockroach_tpu_torch.sql import serving as _serving
+
+    snap = _serving.serving_queue().snapshot()
+    rows = []
+    for cls, entry in sorted(snap.get("classes", {}).items()):
+        rows.append({
+            "batch_class": cls,
+            "batched_dispatch_total": int(
+                entry.get("batched_dispatch_total", 0)),
+            "coalesced_statements": int(
+                entry.get("coalesced_statements", 0)),
+            "fallbacks": int(entry.get("fallbacks", 0)),
+            "occupancy": float(entry.get("occupancy", 0.0)),
+            "coalesce_window_ms": float(
+                entry.get("coalesce_window_ms") or 0.0),
+            "ewma_interarrival_ms": float(
+                entry.get("ewma_interarrival_ms") or 0.0),
+        })
+    return rows
 
 
 def _rows_inflight_traces(base=None) -> List[dict]:

@@ -10,9 +10,9 @@ must be equal, not merely equivalent. Each scenario also makes the JAX
 test's own assertions on each package. The port's sessions run on the
 CPU (device="cpu"); their views' group states live there.
 
-Not here: `test_pgwire_experimental_changefeed` (the pgwire server is
-ROADMAP.md queue 1, item 8d) and `test_status_jobs_matview_block` (the
-status server is item 8e). The metamorphic schedule builds its engines
+Not here: `test_pgwire_experimental_changefeed` (in
+tests/test_torch_pgwire.py, through both packages' servers) and
+`test_status_jobs_matview_block` (the status server is item 8e). The metamorphic schedule builds its engines
 directly (PyEngine, and the native engine where it builds) where the
 JAX test goes through util/crash_harness.make_engine (item 8e). Two
 cases hold the port alone to its departure: a poll or a refresh that

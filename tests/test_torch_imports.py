@@ -29,7 +29,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # logging, tracing, cancellation, admission, the query registry,
 # insights, the crdb_internal tables, the statement bundle), and
 # streaming (rangefeeds, changefeeds, the view fold, materialized views)
-# and vector search (the searchers, the vector bench): imported by name,
+# and vector search (the searchers, the vector bench), and serving and
+# the wire (the serving queue, pgwire, the serving bench): imported by name,
 # so a module
 # that goes missing fails here rather than being skipped by the package
 # walk
@@ -52,7 +53,8 @@ SLICE_MODULES = ["ops.hash", "ops.prefix", "ops.search", "ops.rowmat",
                  "util.admission", "server.registry", "sql.insights",
                  "sql.vtable", "server.debugzip", "kv.rangefeed",
                  "sql.changefeed", "ops.view_fold", "sql.matview",
-                 "ops.vector", "workload.vectorbench"]
+                 "ops.vector", "workload.vectorbench", "sql.serving",
+                 "sql.pgwire", "workload.servebench"]
 
 
 def test_port_imports_no_jax_pyarrow_or_jax_package():
@@ -117,6 +119,26 @@ def test_session_select_without_cuda_or_device_raises(monkeypatch):
     sess.execute("insert into t values (1)")
     with pytest.raises(RuntimeError, match="CUDA"):
         sess.execute("select a from t")
+
+
+def test_pgserver_without_cuda_or_device_raises(monkeypatch):
+    """The wire server resolves its sessions' device at construction:
+    CUDA unless it was given one, and without either it raises before
+    it binds a socket."""
+    from cockroach_tpu_torch.sql.pgwire import PgServer
+    from cockroach_tpu_torch.sql.session import SessionCatalog
+    from cockroach_tpu_torch.storage.engine import PyEngine
+    from cockroach_tpu_torch.storage.mvcc import MVCCStore
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cat = SessionCatalog(MVCCStore(engine=PyEngine()))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PgServer(cat, capacity=64)
+    srv = PgServer(cat, capacity=64, device="cpu")
+    try:
+        assert srv.device == torch.device("cpu")
+    finally:
+        srv.close()
 
 
 def test_tf32_is_off():

@@ -164,9 +164,12 @@ def _cancel_from_thread(sess, via_sql):
     while time.monotonic() < deadline and not done:
         if via_sql:
             _, q, _ = other.execute("show queries")
+            # WARM_Q is batchable: once prepared it runs in the serving
+            # queue's phase (tests/test_concurrency.py takes both)
             ids = [int(i) for i, s, ph in zip(q["query_id"], q["sql"],
                                               q["phase"])
-                   if s == WARM_Q and ph == "executing"]
+                   if s == WARM_Q and ph in ("executing",
+                                             "serving-batched")]
             if ids:
                 other.execute(f"cancel query {ids[0]}")
                 done = True
@@ -343,8 +346,12 @@ def test_vtable_node_metrics_where_limit_and_count():
     # a virtual table is never prepared
     with sess._prepared_mu:
         assert not [k for k in sess._prepared if "crdb_internal" in k]
-    with pytest.raises(Exception, match="item 8d"):
-        sess.execute("select * from crdb_internal.serving_batches")
+    # the serving queue's per-class snapshot (sql/serving.py)
+    _, sb, schema = sess.execute(
+        "select batch_class, fallbacks from crdb_internal.serving_batches")
+    d = schema.dicts[schema.field("batch_class").dict_ref]
+    assert sorted(str(d[int(c)]) for c in sb["batch_class"]) == [
+        "agg", "execute", "scan", "topk", "vector"]
     _, rr, _ = sess.execute("select range_id from crdb_internal.ranges")
     assert len(rr["range_id"]) == 0
 
